@@ -1,0 +1,151 @@
+"""PF iteration kernel B (csrc/pf_step.cu) and resample-gather kernel C
+(csrc/resample_gather.cu), each with its plain PyTorch version.
+
+Kernel B ports `pf/pallas_step.py::fused_propagate_weight_pallas` (folded
+variant) with its semantics: L @ T @ R compose in the kernel's FMA-free
+expression order, six threefry uniforms per particle at counter
+`r * n_total + global_lane` (the jax.random stream), Rz @ Ry @ Rx noise,
+lanes 0/1 pinned, marker-major greedy matching.  Kernel C ports
+`bank_top_pin` -> `gather_soa` -> `bank_restore_pin` as one gather.
+
+Kernel B's parameter vector (float32, on the bank's device):
+  lr[32] (left 4x4 | right 4x4) | pin[32] (current | predicted pose)
+  | prop[12] ([lo, hi] per noise row) | scal[8] (fx fy cx cy tol_pf
+  tol_init num_markers_score 0) | mark[4M] (xyz per marker | 0 or 3e37)
+  | dets[3K] (xy per detection | 0 or 3e37) | downg[M] (0 or 2)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils import cuda_lib, prng
+from . import soa
+
+
+def n_params(m: int, k: int) -> int:
+    return 84 + 4 * m + 3 * k + m
+
+
+def pack_params(left, right, current_pose, predicted_pose, lo, hi, scal, markers_h, marker_mask,
+                det_xy, det_mask, downgrade) -> torch.Tensor:
+    """Build kernel B's parameter vector from tensors on one device."""
+    dev = det_xy.device
+    f = lambda t: t.to(device=dev, dtype=torch.float32).reshape(-1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    big = torch.full((), soa.BIG, dtype=torch.float32, device=dev)
+    prop = torch.stack([f(lo), f(hi)], dim=1).reshape(-1)
+    return torch.cat([
+        f(left), f(right), f(current_pose), f(predicted_pose), prop, f(scal),
+        f(markers_h[:, :3]), torch.where(marker_mask, zero, big),
+        f(det_xy), torch.where(det_mask, zero, big),
+        torch.where(downgrade, torch.full_like(zero, 2.0), zero),
+    ])
+
+
+def unpack_params(prm: torch.Tensor, m: int, k: int):
+    """Kernel B's parameter vector -> (lr, pin, prop, scal, mark, dets, downg)."""
+    mark0 = 84
+    dets0 = mark0 + 4 * m
+    down0 = dets0 + 3 * k
+    return (prm[0:32], prm[32:64], prm[64:76], prm[76:84], prm[mark0:dets0], prm[dets0:down0],
+            prm[down0 : down0 + m])
+
+
+def pf_step_plain(bank16: torch.Tensor, prm: torch.Tensor, keys4, m: int, k: int,
+                  lane_offset: int = 0, n_total: int | None = None):
+    """Plain twin of `pf_step`: same expressions, same order, same draws."""
+    lr, pin, prop, scal, mark, dets, downg = unpack_params(prm, m, k)
+    bank_out = soa.propagate_soa(bank16, lr, pin, prop, keys4, lane_offset, n_total)
+    return bank_out, soa.weight_particles_soa(bank_out, scal, mark, dets, downg)
+
+
+def pf_step(bank16: torch.Tensor, prm: torch.Tensor, keys4, m: int, k: int,
+            lane_offset: int = 0, n_total: int | None = None):
+    """One fused propagate+weight pass over a (16, N) bank -> (bank16', w (N,)).
+    Kernel #3 of the port.  keys4 = (k_rot0, k_rot1, k_trans0, k_trans1)."""
+    if bank16.dtype != torch.float32 or bank16.dim() != 2 or bank16.shape[0] != 16:
+        raise ValueError("pf_step: bank must be a (16, N) float32 tensor")
+    if prm.dtype != torch.float32 or prm.numel() != n_params(m, k):
+        raise ValueError(f"pf_step: params must hold {n_params(m, k)} float32 values")
+    n = bank16.shape[1]
+    n_total = n if n_total is None else n_total
+    if bank16.device.type == "cpu":
+        return pf_step_plain(bank16, prm, keys4, m, k, lane_offset, n_total)
+    cuda_lib.require_cuda("pf_step", bank16, prm)
+    if k != 16 or not 3 <= m <= 8:
+        raise ValueError("pf_step: the kernel takes K = 16 detections and 3 <= M <= 8 markers")
+    lib = cuda_lib.library()
+    out = torch.empty_like(bank16)
+    w = torch.empty(n, dtype=torch.float32, device=bank16.device)
+    code = lib.pfmpe_pf_step(bank16.data_ptr(), prm.data_ptr(), n, m, k, *(int(x) for x in keys4),
+                             lane_offset, n_total, out.data_ptr(), w.data_ptr(),
+                             cuda_lib.stream_ptr(bank16))
+    pf_step.launches += 1
+    cuda_lib.check(code, "pfmpe_pf_step")
+    return out, w
+
+
+pf_step.launches = 0
+
+
+def fused_propagate_weight(key, resampled16, current_pose, predicted_pose, prediction_matrix,
+                           cam_move_inv, noise, fac_trans, fac_rot, tracking: bool,
+                           apply_prediction: bool, inflation: float, camera, markers_h,
+                           marker_mask, det_xy, det_mask, tol_pf, tol_init, downgrade,
+                           num_markers_score=None):
+    """Counterpart of the reference's `fused_propagate_weight_pallas`
+    (want_pairs=False) -> (bank16, weights)."""
+    dev = resampled16.device
+    f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
+    k_rot, k_trans = prng.split(key)
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    left = f(cam_move_inv) if tracking else eye
+    right = f(prediction_matrix) if (tracking and apply_prediction) else eye
+    infl = f(inflation)
+    three = torch.ones(3, dtype=torch.float32, device=dev)
+    lo = torch.cat([f(noise.min_angular) * three * f(fac_rot) * infl,
+                    f(noise.min_translation) * three * f(fac_trans) * infl])
+    hi = torch.cat([f(noise.max_angular) * three * f(fac_rot) * infl,
+                    f(noise.max_translation) * three * f(fac_trans) * infl])
+    if num_markers_score is None:
+        num_markers_score = torch.sum(marker_mask.float())
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    scal = torch.stack([f(camera.fx), f(camera.fy), f(camera.cx), f(camera.cy), f(tol_pf),
+                        f(tol_init), f(num_markers_score), zero])
+    prm = pack_params(left, right, current_pose, predicted_pose, lo, hi, scal, markers_h,
+                      marker_mask, det_xy, det_mask, downgrade)
+    return pf_step(resampled16.contiguous(), prm, (*k_rot, *k_trans), markers_h.shape[0],
+                   det_xy.shape[0])
+
+
+def resample_gather_plain(bank16: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
+    """Plain twin of `resample_gather`."""
+    n = anc.shape[0]
+    top = bank16[:12].index_select(1, anc)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=bank16.dtype,
+                          device=bank16.device)[:, None].expand(4, n)
+    return torch.cat([top, bottom])
+
+
+def resample_gather(bank16: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
+    """out[r, t] = bank16[r, anc[t]] for r < 12, rows 12-15 = (0, 0, 0, 1).
+    Kernel #5/#6 of the port (with the gather between them)."""
+    if bank16.dtype != torch.float32 or bank16.dim() != 2 or bank16.shape[0] != 16:
+        raise ValueError("resample_gather: bank must be a (16, N) float32 tensor")
+    if anc.dtype != torch.int64 or anc.dim() != 1:
+        raise ValueError("resample_gather: ancestors must be a 1-D int64 tensor")
+    if bank16.device.type == "cpu":
+        return resample_gather_plain(bank16, anc)
+    cuda_lib.require_cuda("resample_gather", bank16, anc)
+    lib = cuda_lib.library()
+    n = anc.shape[0]
+    out = torch.empty((16, n), dtype=torch.float32, device=bank16.device)
+    code = lib.pfmpe_resample_gather(bank16.data_ptr(), anc.data_ptr(), n, out.data_ptr(),
+                                     cuda_lib.stream_ptr(bank16))
+    resample_gather.launches += 1
+    cuda_lib.check(code, "pfmpe_resample_gather")
+    return out
+
+
+resample_gather.launches = 0

@@ -1,0 +1,463 @@
+"""The per-frame tracking state machine (port of `tracker/step.py`).
+
+The reference compiles a frame into one program, with `lax.cond` /
+`lax.while_loop` for its data-dependent control flow.  Here that control
+flow runs on the host: the tracker reads the few scalars it branches on
+through a counted `HostReads` (one device -> host sync each), and keeps
+the small integer counters (`it_since_initialized`, `uncertainty`,
+`coast_frames`, `degraded_frames`) as host ints while a frame runs.
+
+Syncs on a tracked frame: the state counters (1), the ROI for the
+crop-or-full-frame choice (1), the detection count (1; +2 if the ROI is
+grown and detection retried), the best weight after every PF pass (1 per
+pass), and the accept / marginal / ESS gates read together (1).  A
+marginal frame adds up to two more (short-P3P).
+
+Ported: the init branch and the particle-filter track branch with the
+reference's defaults.  Options that are not ported raise
+NotImplementedError (`utils.config.check_ported`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geometry.camera import Camera, project
+from ..geometry.se3 import inverse, predict_constant_velocity
+from ..ops.blob import Detections, determine_roi, find_leds, grow_roi
+from ..pf.propagate import NoiseBounds, propagation_noise_factors
+from ..pf.refine import gauss_newton_refine
+from ..pf.refine_kernel import gauss_newton_refine_batched
+from ..pf.soa import pick_lane, stratified_resample_soa, unpack
+from ..pf.step_kernel import fused_propagate_weight, resample_gather
+from ..pf.weight import weight_particles
+from ..utils import prng
+from ..utils.config import TrackerConfig, check_ported
+from ..utils.dynamic import DynamicParams
+from ..utils.flags import FailFlag
+from ..utils.sync import HostReads
+from .initialise import InitResult, argsort_stable, initialise
+from .short_p3p import short_p3p
+from .state import FrameResult, TargetState
+
+_F32 = np.float32
+# DynamicParams fields the host branches on
+_HOST_DYN = ("pf_exit_gate_factor", "pf_accept_gate_factor", "marginal_margin_factor",
+             "noise_inflation_per_10_iters")
+
+
+class Tracker:
+    """`step(state, image, t) -> (state', FrameResult)` on one device.
+
+    `host.count` counts the device -> host reads so far and `frames` the
+    frames stepped, so `host.count / frames` is the syncs per frame."""
+
+    def __init__(self, camera: Camera, markers_h, marker_mask, config: TrackerConfig,
+                 device="cpu"):
+        check_ported(config)
+        self.config = config
+        self.device = torch.device(device)
+        self.camera = camera.to(self.device)
+        self.markers_h = torch.as_tensor(markers_h, dtype=torch.float32).to(self.device)
+        mask = torch.as_tensor(marker_mask).to(torch.bool)
+        self.marker_mask = mask.to(self.device)
+        self.n_markers = int(mask.sum())
+        m = self.markers_h.shape[0]
+        down = list(config.marker_downgrade) + [False] * (m - len(config.marker_downgrade))
+        self.downgrade = torch.tensor(down[:m], dtype=torch.bool, device=self.device)
+        self.dyn = DynamicParams.from_config(config, self.device)
+        self._dyn_host = {n: float(_F32(getattr(config, n))) for n in _HOST_DYN}
+        self.params = config.blob_params()
+        self.host = HostReads()
+        self.frames = 0
+
+    # ------------------------------------------------------------ helpers
+    def _t(self, v, dtype=torch.float32) -> torch.Tensor:
+        return torch.tensor(v, dtype=dtype, device=self.device)
+
+    def _detect(self, image, roi, min_a, max_a, dyn: DynamicParams) -> Detections:
+        return find_leds(image, roi, self.params, self.camera, min_a, max_a,
+                         threshold=dyn.threshold_value,
+                         wh_distortion=dyn.max_width_height_distortion,
+                         circ_distortion=dyn.max_circular_distortion, host=self.host)
+
+    def _adaptive_blob_areas(self, dyn: DynamicParams, pred_dist: torch.Tensor):
+        c = self.config
+        slope = c.blob_area_distance_slope
+        min_a = torch.clamp(torch.minimum(dyn.min_blob_area,
+                                          dyn.min_blob_area - slope * (pred_dist - 1.0)),
+                            min=c.abs_min_blob_area)
+        max_a = torch.clamp(torch.minimum(dyn.max_blob_area,
+                                          dyn.max_blob_area - slope * (pred_dist - 1.0)),
+                            min=c.abs_max_blob_area)
+        return min_a, max_a
+
+    def _update_pose_times(self, state: TargetState, t: torch.Tensor, new_current):
+        advance = ((t - state.time_current) > 0.001) | (t < state.time_current)
+        return state.replace(
+            previous_pose=state.current_pose,
+            current_pose=new_current,
+            time_previous=torch.where(advance, state.time_current, state.time_previous),
+            time_current=torch.where(advance, t, state.time_current),
+        )
+
+    def _counters(self, state: TargetState, it, unc, coast, deg) -> TargetState:
+        i32 = torch.int32
+        return state.replace(it_since_initialized=self._t(it, i32), uncertainty=self._t(unc, i32),
+                             coast_frames=self._t(coast, i32), degraded_frames=self._t(deg, i32))
+
+    # ------------------------------------------------------------- step
+    def __call__(self, state: TargetState, image: torch.Tensor, t, dyn: DynamicParams | None = None):
+        if dyn is None:
+            dyn = self.dyn
+            dyn_host = self._dyn_host
+        else:
+            vals = self.host(torch.stack([getattr(dyn, n) for n in _HOST_DYN]))
+            dyn_host = dict(zip(_HOST_DYN, vals))
+        image = image.to(self.device)
+        t = self._t(float(t))
+        it, unc, coast, deg = self.host(torch.stack([
+            state.it_since_initialized, state.uncertainty, state.coast_frames,
+            state.degraded_frames]))
+        state = state.replace(fail_flag=self._t(-10, torch.int32),
+                              pose_updated=self._t(False, torch.bool))
+        if it < 1:
+            state, det, best_weight, used_bf = self._init_branch(state, image, t, dyn, unc,
+                                                                 (it, unc, coast, deg))
+        else:
+            state, det, best_weight, used_bf = self._track_branch(state, image, t, dyn, dyn_host,
+                                                                  (it, unc, coast, deg))
+        self.frames += 1
+        result = FrameResult(
+            pose=state.current_pose,
+            pose_inverse=inverse(state.current_pose),
+            covariance=state.covariance,
+            pose_updated=state.pose_updated,
+            fail_flag=state.fail_flag,
+            num_detections=det.count,
+            num_gn_iterations=state.num_gn_iterations,
+            used_brute_force=self._t(used_bf, torch.bool),
+            detections_xy=det.xy,
+            detections_mask=det.mask,
+            detections_occluded=det.occluded,
+            detections_injected=det.injected,
+            roi=state.roi,
+            best_weight=best_weight,
+            blob_area_sum=torch.sum(det.area),
+            exposure_us=state.exposure_us,
+            resample_clipped=state.resample_clipped,
+        )
+        return state, result
+
+    # ------------------------------------------------------------- INIT
+    def _init_branch(self, state, image, t, dyn, unc, counters):
+        c = self.config
+        it, unc, coast, deg = counters
+        key, _k_faults = prng.split(state.key.tolist())
+        state = state.replace(key=torch.tensor(key, dtype=torch.int64))
+        if c.pf_init_min_markers > 0:
+            init_needed = min(self.n_markers, c.pf_init_min_markers)
+        else:
+            init_needed = self.n_markers
+
+        growth = float(_F32(c.roi_uncertainty_growth)
+                       * (_F32(1.0) + np.floor(_F32(unc) / _F32(3.0))))
+        roi = grow_roi(state.roi, growth, growth, self.camera)
+        det = self._detect(image, roi, None, None, dyn)
+        prev_t = state.current_pose[:3, 3]
+        count, prev_norm = self.host(torch.stack([det.count.float(), torch.linalg.norm(prev_t)]))
+        had_track = prev_norm > 1e-6
+        if count < init_needed and had_track:
+            min_a, max_a = self._adaptive_blob_areas(dyn, torch.linalg.norm(prev_t))
+            det = self._detect(image, roi, min_a, max_a, dyn)
+            count = self.host(det.count)
+        enough = count >= init_needed
+
+        recently = unc < c.init_consistency_uncertainty_cap
+        if enough:
+            gate_active = had_track and recently
+            prefer = torch.cat([prev_t, self._t([float(gate_active)]),
+                                state.current_pose[:3, :3].reshape(9)])
+            init_res = initialise(self.camera, det, self.markers_h, self.marker_mask, state.bank,
+                                  c, dyn, prefer_near=prefer)
+        else:
+            init_res = InitResult(
+                success=self._t(False, torch.bool),
+                pose=torch.eye(4, device=self.device),
+                det_for_marker=torch.full((self.markers_h.shape[0],), -1, dtype=torch.int32,
+                                          device=self.device),
+                bank=state.bank,
+                flag=self._t(int(FailFlag.TOO_FEW_LEDS_INIT), torch.int32),
+            )
+
+        if c.init_consistency_radius > 0.0:
+            far = torch.linalg.norm(init_res.pose[:3, 3] - prev_t) > c.init_consistency_radius
+            if c.init_consistency_rotation_deg > 0.0:
+                r_rel = init_res.pose[:3, :3] @ state.current_pose[:3, :3].T
+                cos_a = torch.clamp((torch.trace(r_rel) - 1.0) / 2.0, -1.0, 1.0)
+                cos_lim = torch.cos(torch.deg2rad(self._t(c.init_consistency_rotation_deg)))
+                far = far | (cos_a < cos_lim)
+            inconsistent = init_res.success & far & (had_track and recently)
+            init_res = init_res._replace(
+                success=init_res.success & ~inconsistent,
+                flag=torch.where(inconsistent, int(FailFlag.INIT_INCONSISTENT),
+                                 init_res.flag).to(torch.int32),
+            )
+
+        state = state.replace(roi=roi)
+        success, flag = self.host(torch.stack([init_res.success.to(torch.int32), init_res.flag]))
+        if success:
+            m = self.markers_h.shape[0]
+            dfm = init_res.det_for_marker
+            corr = torch.stack([torch.arange(m, dtype=torch.int32, device=self.device), dfm], -1)
+            corr_mask = (dfm >= 0) & self.marker_mask
+            res = gauss_newton_refine(self.camera, init_res.pose, self.markers_h, det.xy, corr,
+                                      corr_mask, c.gn_max_iterations, c.gn_convergence_tol)
+            state = state.replace(
+                current_pose=init_res.pose,
+                predicted_pose=res.pose,
+                covariance=res.covariance,
+                bank=init_res.bank,
+                resampled=init_res.bank,
+                pose_updated=self._t(True, torch.bool),
+                num_gn_iterations=res.num_iterations,
+                fail_flag=self._t(int(FailFlag.INIT_SUCCESS), torch.int32),
+            )
+            state = self._counters(state, 1, unc, coast, deg)
+            state = self._update_pose_times(state, t, res.pose)
+        else:
+            bump = 1 if enough else 2
+            if flag == int(FailFlag.INIT_INCONSISTENT):
+                bump += c.init_consistency_reject_bump
+            state = state.replace(pose_updated=self._t(False, torch.bool), fail_flag=init_res.flag)
+            state = self._counters(state, it, unc + bump, coast, deg)
+        return state, det, self._t(0.0), True
+
+    # ------------------------------------------------------------ TRACK
+    def _track_branch(self, state, image, t, dyn, dyn_host, counters):
+        c = self.config
+        dev = self.device
+        it, unc, coast, deg = counters
+        key, _k_faults, k_resample = prng.split(state.key.tolist(), 3)
+
+        dt_past = state.time_current - state.time_previous
+        prediction = predict_constant_velocity(state.previous_pose, state.current_pose, dt_past,
+                                               t - state.time_current)
+        cam_move_inv = torch.eye(4, device=dev)  # no observer ego-motion (use_cam_pos=False)
+        predicted = cam_move_inv @ (state.current_pose @ prediction)
+
+        # ROI from predicted particle pixels
+        s_cap = min(c.roi_particle_subsample, state.resampled.shape[1])
+        sub = cam_move_inv @ unpack(state.resampled[:, :s_cap]) @ prediction
+        pix = torch.cat([project(self.camera, sub, self.markers_h).reshape(-1, 2),
+                         project(self.camera, predicted, self.markers_h)])
+        pix_mask = torch.cat([self.marker_mask[None, :].expand(s_cap, -1).reshape(-1),
+                              self.marker_mask])
+        roi = determine_roi(pix, pix_mask, self.camera, c.roi_border_thickness)
+        dist_val = torch.clamp(c.roi_distance_gain / torch.clamp(state.current_pose[2, 3], min=0.1),
+                               0.0, 100.0)
+        roi = grow_roi(roi, dist_val, dist_val, self.camera)
+
+        min_a, max_a = self._adaptive_blob_areas(dyn, torch.linalg.norm(predicted[:3, 3]))
+        det = self._detect(image, roi, min_a, max_a, dyn)
+        num_led = self.host(det.count)
+        if num_led < c.min_num_leds_detected:
+            roi = grow_roi(roi, c.roi_retry_growth, c.roi_retry_growth, self.camera)
+            det = self._detect(image, roi, min_a, max_a, dyn)
+            num_led = self.host(det.count)
+
+        # PF retry loop
+        tracking = it > 1
+        fresh = it == 1
+        fac_t, fac_r = propagation_noise_factors(fresh, prediction,
+                                                 torch.clamp(t - state.time_current, min=1e-6))
+        m_f = _F32(self.n_markers)
+        num_led_f = _F32(num_led)
+        exit_gate = m_f * min(_F32(dyn_host["pf_exit_gate_factor"]), num_led_f)
+        accept_gate = m_f * min(_F32(dyn_host["pf_accept_gate_factor"]), num_led_f)
+        noise = NoiseBounds(dyn.min_translation_noise, dyn.max_translation_noise,
+                            dyn.min_angular_noise, dyn.max_angular_noise)
+        resampled16 = state.resampled
+
+        def pf_compute(pf_it: int, k):
+            inflation = _F32(1.0) + _F32(dyn_host["noise_inflation_per_10_iters"]) * np.floor(
+                _F32(pf_it) / _F32(10.0))
+            return fused_propagate_weight(
+                k, resampled16, state.current_pose, predicted, prediction, cam_move_inv, noise,
+                fac_t, fac_r, tracking, tracking and (pf_it % 10 != 0), float(inflation),
+                self.camera, self.markers_h, self.marker_mask, det.xy, det.mask,
+                dyn.back_projection_pixel_tolerance_pf, dyn.back_projection_pixel_tolerance,
+                self.downgrade, float(m_f))
+
+        key, k_loop = prng.split(key)
+        state = state.replace(key=torch.tensor(key, dtype=torch.int64))
+        k_rest, k0 = prng.split(k_loop)
+        bank16, best_w = pf_compute(0, k0)
+        highest = self.host(torch.max(best_w))
+        pf_it = 1
+        while pf_it < c.pf_max_retries and highest < exit_gate:
+            k_rest, k = prng.split(k_rest)
+            bank_i, w_i = pf_compute(pf_it, k)
+            new_high = self.host(torch.max(w_i))
+            if new_high > highest:
+                bank16, best_w = bank_i, w_i
+            highest = max(highest, new_high)
+            pf_it += 1
+        highest_t = torch.max(best_w)
+
+        if c.motion_prior_radius > 0.0:
+            d = torch.linalg.norm(bank16[[3, 7, 11]] - predicted[:3, 3][:, None], dim=0)
+            excess = torch.clamp(d - c.motion_prior_radius, min=0.0) / self._t(
+                c.motion_prior_falloff)
+            prior = torch.exp(-0.5 * excess * excess)
+            small_step = torch.linalg.norm(prediction[:3, 3]) < c.motion_prior_radius
+            if tracking:
+                best_w = torch.where(small_step, best_w * prior, best_w)
+            highest_t = torch.max(best_w)
+
+        w_sum = torch.sum(best_w)
+        w_sum2 = torch.sum(best_w * best_w)
+        weights_norm = torch.where(w_sum > 0, best_w / torch.clamp(w_sum, min=1e-12), best_w)
+        best_idx = torch.argmax(best_w)
+        n_f = self._t(float(best_w.shape[0]))
+        ess_frac = (w_sum * w_sum) / (torch.clamp(w_sum2, min=1e-30) * n_f)
+        w_sum_h, highest, ess_h = self.host(torch.stack([w_sum, highest_t, ess_frac]))
+        accepted = w_sum_h > 0 and highest > accept_gate
+        marginal = highest < accept_gate + _F32(dyn_host["marginal_margin_factor"]) * num_led_f
+
+        state = state.replace(bank=bank16, roi=roi)
+        if accepted:
+            flag = int(FailFlag.PF_SUCCESS)
+            coast = 0
+            state = state.replace(pose_updated=self._t(False, torch.bool))
+            if marginal:
+                if unc < c.uncertainty_cap:
+                    unc += 1
+                    pose_b = pick_lane(bank16, best_idx).reshape(4, 4)
+                    _, p_b, nc_b = weight_particles(
+                        self.camera, pose_b[None], self.markers_h, self.marker_mask, det.xy,
+                        det.mask, dyn.back_projection_pixel_tolerance_pf,
+                        dyn.back_projection_pixel_tolerance, self.downgrade, self._t(float(m_f)))
+                    if self.host(nc_b[0]) == 3:
+                        p = p_b[0]
+                        three = p[argsort_stable((p[:, 0] < 0).to(torch.int32))][:3]
+                        res = short_p3p(self.camera, det, self.markers_h, self.marker_mask, three,
+                                        bank16, c, dyn)
+                        if self.host(res.success):
+                            state = state.replace(bank=res.bank)
+                            flag = int(FailFlag.SHORT_P3P_SUCCESS)
+                        else:
+                            it = 0
+                else:
+                    it, unc, flag = 0, 1, int(FailFlag.UNCERTAINTY_REINIT)
+            else:
+                unc = 1
+            if c.degraded_reinit_frames > 0:
+                strong = m_f * (m_f + _F32(c.degraded_weight_offset))
+                if highest < strong:
+                    deg += 1
+                else:
+                    deg = max(deg - c.degraded_reset_decay, 0) if c.degraded_reset_decay > 0 else 0
+                if deg >= c.degraded_reinit_frames:
+                    deg = 0
+                    it = 0
+                    unc = max(c.init_consistency_uncertainty_cap
+                              - c.init_consistency_reject_bump - 1, 0)
+                    flag = int(FailFlag.UNCERTAINTY_REINIT)
+            state = state.replace(fail_flag=self._t(flag, torch.int32))
+            if it > 0:
+                state, jump = self._resample_and_refine(state, k_resample, det, state.bank,
+                                                        weights_norm, dyn, t, it, ess_h, best_idx)
+                it = min(it + 1, 2)
+                state = state.replace(fail_flag=torch.where(
+                    jump, int(FailFlag.PF_JUMP), state.fail_flag).to(torch.int32))
+        else:
+            coast_ok = c.pf_coast_frames > 0 and it >= 2 and coast < c.pf_coast_frames
+            unc += 1
+            it = it if coast_ok else 0
+            coast = coast + 1 if coast_ok else 0
+            state = state.replace(
+                fail_flag=self._t(int(FailFlag.PF_NO_REASONABLE_PARTICLE), torch.int32),
+                predicted_pose=pick_lane(bank16, best_idx).reshape(4, 4),
+                pose_updated=self._t(False, torch.bool),
+                weights=weights_norm,
+            )
+        state = self._counters(state, it, unc, coast, deg)
+        return state, det, highest_t, False
+
+    def _resample_and_refine(self, state, key, det, bank16, weights_norm, dyn, t, it, ess_h,
+                             argmax_idx):
+        """Resampling (ESS-gated) + GN refinement over 2M+1 binding
+        hypotheses of the most-resampled particle."""
+        c = self.config
+        dev = self.device
+        if c.resample_min_ess <= 0.0 or ess_h < c.resample_min_ess:
+            anc, _counts, most = stratified_resample_soa(key, weights_norm)
+            resampled16 = resample_gather(bank16, anc)
+        else:
+            resampled16, most = bank16, argmax_idx
+
+        pre_gn = pick_lane(bank16, most).reshape(4, 4)
+        tol_pf = dyn.back_projection_pixel_tolerance_pf
+        _, pairs_1, _ = weight_particles(self.camera, pre_gn[None], self.markers_h,
+                                         self.marker_mask, det.xy, det.mask, tol_pf,
+                                         dyn.back_projection_pixel_tolerance, self.downgrade)
+        base_pairs = pairs_1[0]
+        m_cap = self.markers_h.shape[0]
+        marker_ids = torch.arange(m_cap, device=dev)
+        minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
+        dfm_base = torch.max(torch.where(base_pairs[:, 0][None, :] == marker_ids[:, None],
+                                         base_pairs[:, 1][None, :], minus1), dim=1).values
+        if c.gn_hypotheses <= 1:
+            dfm_h = dfm_base[None]
+        else:
+            uv0 = project(self.camera, pre_gn, self.markers_h)
+            dd = det.xy[None, :, :] - uv0[:, None, :]
+            d2m = torch.sum(dd * dd, dim=-1)
+            big = torch.full((), 1e12, device=dev)
+            d2m = torch.where(det.mask[None, :], d2m, big)
+            bound = torch.clamp(dfm_base, 0, det.xy.shape[0] - 1)
+            d2_alt = torch.where(torch.arange(det.xy.shape[0], device=dev)[None, :] == bound[:, None],
+                                 big, d2m)
+            alt_min = torch.min(d2_alt, dim=1).values
+            alt = torch.argmax((d2_alt == alt_min[:, None]).to(torch.int32), dim=1).to(torch.int32)
+            alt_ok = (alt_min <= tol_pf * tol_pf) & (dfm_base >= 0)
+            alt = torch.where(alt_ok, alt, dfm_base)
+            eye_m = torch.eye(m_cap, dtype=torch.bool, device=dev)
+            swap_h = torch.where(eye_m, alt[None, :], dfm_base[None, :])
+            drop_h = torch.where(eye_m, minus1, dfm_base[None, :])
+            dfm_h = torch.cat([dfm_base[None], swap_h, drop_h])
+
+        corr_masks = (dfm_h >= 0) & self.marker_mask[None, :]
+        n_h = corr_masks.shape[0]
+        res = gauss_newton_refine_batched(self.camera, pre_gn[None].expand(n_h, 4, 4), self.markers_h,
+                                          det.xy, dfm_h, corr_masks, c.gn_max_iterations,
+                                          c.gn_convergence_tol)
+        n_pairs = torch.sum(corr_masks, dim=-1).float()
+        local = torch.linalg.norm(res.pose[:, :3, 3] - pre_gn[:3, 3][None], dim=-1) <= c.gn_step_radius
+        feasible = (res.max_residual <= c.gn_residual_gate) & (n_pairs > 0) & local
+        pref = n_pairs - 1e-3 * torch.arange(n_h, dtype=torch.float32, device=dev)
+        pref = torch.where(feasible, pref, torch.full((), float("-inf"), device=dev))
+        any_feasible = torch.any(feasible)
+        best_h = torch.where(any_feasible, torch.argmax(pref), torch.zeros((), dtype=torch.int64,
+                                                                          device=dev))
+        pick = lambda x: x.index_select(0, best_h.reshape(1))[0]
+        pose = torch.where(any_feasible, pick(res.pose), pre_gn)
+        jump = torch.max(torch.abs(pose[:3, :3] - pre_gn[:3, :3])) >= dyn.jump_threshold
+        state = state.replace(
+            predicted_pose=pose,
+            covariance=pick(res.covariance),
+            pose_updated=self._t(True, torch.bool),
+            num_gn_iterations=pick(res.num_iterations),
+            resampled=resampled16,
+            weights=weights_norm,
+            bank=bank16,
+        )
+        return self._update_pose_times(state, t, pose), jump
+
+
+def make_tracker(camera: Camera, markers_h, marker_mask, config: TrackerConfig,
+                 device="cpu") -> Tracker:
+    """Build the per-frame step for one target on `device`."""
+    return Tracker(camera, markers_h, marker_mask, config, device)

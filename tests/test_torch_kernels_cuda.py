@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked `cuda`; each test skips when torch sees no GPU, so on a CPU-only
+machine they count as skipped.  On the GPU machine:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
+
+(chip_smoke.py runs the same checks at the main path's full shapes.)"""
+
+import numpy as np
+import pytest
+import torch
+
+from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3
+from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
+from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel as rk
+from pf_monocular_pose_estimator_tpu_torch.pf import step_kernel as sk
+from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
+from pf_monocular_pose_estimator_tpu_torch.utils import prng
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _image(rng, h, w):
+    img = rng.uniform(0, 200, (h, w)).astype(np.float32)
+    for _ in range(12):  # saturated blobs of a few pixels
+        y, x = rng.integers(4, h - 4), rng.integers(4, w - 4)
+        r = rng.integers(1, 4)
+        img[y - r:y + r + 1, x - r:x + r + 1] = 255.0
+    return torch.from_numpy(img)
+
+
+@pytest.mark.parametrize("active", [True, False])
+def test_threshold_blur_exact(dev, active):
+    rng = np.random.default_rng(0)
+    img = _image(rng, 480, 752).to(dev)
+    prm = dk.make_params([10.0, 5.0, 700.0, 460.0], 240.0 if active else 60.0, 8.0, 160.0, 0.6,
+                         dev)
+    got = dk.threshold_blur(img, prm, 5, active)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dk.threshold_blur_plain(img, prm, 5, active))
+
+
+@pytest.mark.parametrize("shape", [(192, 256), (100, 90)])
+def test_detect_stats_exact(dev, shape):
+    rng = np.random.default_rng(1)
+    img = _image(rng, *shape).to(dev)
+    prm = dk.make_params([3.0, 2.0, shape[1] - 6.0, shape[0] - 4.0], 240.0, 8.0, 160.0, 0.6, dev)
+    lab, maps, top = dk.detect_stats(img, prm, 5, True, 12, 16)
+    lab_p, maps_p, top_p = dk.detect_stats_plain(img, prm, 5, True, 12, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(lab, lab_p)
+    assert torch.equal(maps, maps_p)
+    assert torch.equal(top, top_p)
+
+
+def _pf_inputs(dev, n, rng):
+    gt = exp_se3(torch.tensor([0.02, -0.01, 0.0, 0.1, -0.2, 0.3])).to(dev)
+    gt[2, 3] += 1.3
+    tw = torch.from_numpy(rng.normal(0, 0.02, (n, 6)).astype(np.float32)).to(dev)
+    bank = (exp_se3(tw) @ gt).reshape(n, 16).T.contiguous()
+    markers = torch.cat([torch.from_numpy(rng.normal(0, 0.08, (5, 3)).astype(np.float32)),
+                         torch.ones(5, 1)], 1).to(dev)
+    pts = (gt @ markers.T)[:3]
+    det_xy = torch.zeros(16, 2, device=dev)
+    det_xy[:5, 0] = 420.0 * pts[0] / pts[2] + 376.0
+    det_xy[:5, 1] = 418.0 * pts[1] / pts[2] + 240.0
+    det_xy[5] = det_xy[2] + 1.5
+    det_mask = torch.arange(16, device=dev) < 6
+    scal = torch.tensor([420.0, 418.0, 376.0, 240.0, 10.0, 5.0, 5.0, 0.0], device=dev)
+    lo = torch.tensor([-0.02] * 3 + [-0.01] * 3, device=dev)
+    step = exp_se3(torch.tensor([0.001, 0.0, 0.002, 0.0, 0.01, 0.0], device=dev))
+    prm = sk.pack_params(torch.eye(4, device=dev), step, gt, gt @ step, lo, -lo, scal, markers,
+                         torch.ones(5, dtype=torch.bool, device=dev), det_xy, det_mask,
+                         torch.tensor([False, True, False, False, False], device=dev))
+    return bank, prm
+
+
+@pytest.mark.parametrize("n,offset", [(4099, 0), (2048, 1000)])
+def test_pf_step_matches_plain(dev, n, offset):
+    rng = np.random.default_rng(2)
+    bank, prm = _pf_inputs(dev, n, rng)
+    keys = (*prng.split(prng.prng_key(3))[0], *prng.split(prng.prng_key(3))[1])
+    got_b, got_w = sk.pf_step(bank, prm, keys, 5, 16, lane_offset=offset, n_total=8192)
+    want_b, want_w = sk.pf_step_plain(bank, prm, keys, 5, 16, lane_offset=offset, n_total=8192)
+    torch.cuda.synchronize()
+    assert torch.equal(got_b, want_b)
+    assert float((got_w == want_w).float().mean()) >= 0.9999
+    assert float(got_w.max()) > 20.0
+
+
+def test_resample_gather_exact(dev):
+    rng = np.random.default_rng(4)
+    bank, prm = _pf_inputs(dev, 10_000, rng)
+    _, w = sk.pf_step(bank, prm, (1, 2, 3, 4), 5, 16)
+    anc, _, _ = stratified_resample_soa(prng.prng_key(5), w / w.sum())
+    got = sk.resample_gather(bank, anc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sk.resample_gather_plain(bank, anc))
+
+
+def test_gn_refine_matches_plain(dev):
+    rng = np.random.default_rng(6)
+    b, m = 11, 5
+    poses = (exp_se3(torch.from_numpy(rng.normal(0, 0.01, (b, 6)).astype(np.float32)))
+             @ exp_se3(torch.tensor([0.0, 0.0, 1.4, 0.1, 0.2, 0.0]))).reshape(b, 16).to(dev)
+    mark = torch.from_numpy(rng.normal(0, 0.08, (3, m)).astype(np.float32)).to(dev)
+    du = torch.from_numpy(rng.uniform(300, 450, (b, m)).astype(np.float32)).to(dev)
+    dv = torch.from_numpy(rng.uniform(200, 280, (b, m)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy((rng.random((b, m)) > 0.15).astype(np.float32)).to(dev)
+    scal = torch.tensor([420.0, 418.0, 376.0, 240.0], device=dev)
+    got = rk.gn_refine(scal, poses.contiguous(), mark, du, dv, mask, 25, 1e-4)
+    want = rk.gn_refine_plain(scal, poses, mark, du, dv, mask, 25, 1e-4)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_reject_bad_input(dev):
+    with pytest.raises(ValueError):
+        dk.threshold_blur(torch.zeros(8, 8, device=dev), torch.zeros(11, device=dev), 5)
+    with pytest.raises(ValueError):
+        dk.threshold_blur(torch.zeros(8, 8, device=dev), torch.zeros(12), 5)
+    with pytest.raises(ValueError):
+        sk.resample_gather(torch.zeros(16, 4, device=dev), torch.zeros(4, dtype=torch.int32,
+                                                                        device=dev))
