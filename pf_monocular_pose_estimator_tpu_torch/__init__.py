@@ -11,15 +11,19 @@ to find):
   solvers/   batched Ferrari quartic + Kneip P3P, combinatoric tables
   ops/       LED detection; `detect_kernel` wraps csrc/detect.cu
   pf/        propagate, weight, resample, refine; `step_kernel` wraps
-             csrc/pf_step.cu + csrc/resample_gather.cu, `refine_kernel`
-             wraps csrc/gn_refine.cu
+             csrc/pf_step.cu + csrc/resample_gather.cu, `weight_kernel`
+             csrc/pf_weight.cu, `resample_kernel` csrc/resample_decode.cu,
+             `gather_kernel` csrc/monotone_gather.cu, `refine_kernel`
+             csrc/gn_refine.cu
   tracker/   per-frame state machine (init branch + PF track branch)
   utils/     config, fail flags, dynamic params, threefry PRNG, state
              converters, the kernel library build
   csrc/      CUDA C++ sources, built at first use into build/torch_kernels/
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors and
-launches its CUDA kernel (or raises) for CUDA tensors.
+launches its CUDA kernel (or raises) for CUDA tensors.  The entry points
+(`tracker.make_tracker`, `tracker.TargetState.create`) run on the card
+unless given `device="cpu"`.
 """
 
 import torch as _torch

@@ -1,0 +1,67 @@
+// Particle-filter weight of every particle of a (16, N) structure-of-arrays
+// bank against the frame's detections, with each particle's greedy pairs
+// and pair count.
+//
+// Replaces the reference's Pallas TPU kernel
+//   pf_monocular_pose_estimator_tpu/pf/pallas_weight.py::weight_particles_pallas
+// (the tracker's weight after an XLA propagation when use_fused_pf_kernel is
+// off).  Same semantics: marker-major M x K distance volume with the 3e37
+// sentinel, M rounds of greedy first-minimum matching, score
+// nms + ((tol_init - d) / tol_init)^2 minus reuse and downgrade penalties;
+// pairs (2M, N) int32 row 2s = marker, row 2s + 1 = detection of step s
+// (-1 where none formed), ncorr (N,) int32.
+//
+// What bounds it on Hopper: one thread per particle reads 12 rows (48 B) and
+// writes 48 B (weight, 2M = 10 pair rows, count): 9.6 MB at N = 100,000,
+// ~2.9 us at 3.35 TB/s.  The work is ~2.1 k operations per particle (the
+// 80-cell volume and five greedy sweeps over it), ~3.2 us at the 67 TFLOP/s
+// fp32 peak, so operations set the bound by a little.  The TPU kernel staged
+// the volume in VMEM scratch; here the whole volume and the greedy state
+// stay in registers (pf_common.cuh), nothing is staged, and the row-wise
+// bank reads and pair writes coalesce.  Built with --fmad=false.
+
+#include "pf_common.cuh"
+
+namespace {
+
+// wprm: scal[8] | mark[4M] | dets[3K] | downg[M] (pf_common.cuh)
+template <int M, int K>
+__global__ void __launch_bounds__(256) pf_weight_kernel(const float* __restrict__ bank,
+                                                        const float* __restrict__ wprm, int n,
+                                                        float* __restrict__ wout,
+                                                        int* __restrict__ pairs,
+                                                        int* __restrict__ ncorr) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  float rows[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) rows[i] = bank[(size_t)i * n + lane];
+  wout[lane] = greedy_weight<M, K, true>(rows, wprm, lane, n, pairs, ncorr);
+}
+
+template <int M>
+cudaError_t launch_m(const float* bank, const float* wprm, int n, float* w, int* pairs,
+                     int* ncorr, cudaStream_t st) {
+  const int threads = 256;
+  pf_weight_kernel<M, 16><<<(n + threads - 1) / threads, threads, 0, st>>>(bank, wprm, n, w,
+                                                                             pairs, ncorr);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pfmpe_pf_weight(const float* bank, const float* wprm, int n, int m, int k,
+                               float* w, int* pairs, int* ncorr, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaSuccess;
+  if (k != 16) return (int)cudaErrorInvalidValue;
+  switch (m) {
+    case 3: return (int)launch_m<3>(bank, wprm, n, w, pairs, ncorr, st);
+    case 4: return (int)launch_m<4>(bank, wprm, n, w, pairs, ncorr, st);
+    case 5: return (int)launch_m<5>(bank, wprm, n, w, pairs, ncorr, st);
+    case 6: return (int)launch_m<6>(bank, wprm, n, w, pairs, ncorr, st);
+    case 7: return (int)launch_m<7>(bank, wprm, n, w, pairs, ncorr, st);
+    case 8: return (int)launch_m<8>(bank, wprm, n, w, pairs, ncorr, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

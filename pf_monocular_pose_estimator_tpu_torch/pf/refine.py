@@ -1,7 +1,10 @@
-"""Gauss-Newton pose refinement, one pose at a time (port of `pf/refine.py`).
+"""Gauss-Newton pose refinement (port of `pf/refine.py`).
 
-The init branch refines its single candidate with this; the track branch's
-batched hypotheses go through kernel D (`pf.refine_kernel`)."""
+`gauss_newton_refine` takes one pose or a batch of them: the init branch
+refines its single candidate with it, and with `use_pallas_gn` off the
+track branch refines its hypotheses with it, the batch written out where
+the reference vmaps.  With `use_pallas_gn` on (the default) the
+hypotheses go through kernel D (`pf.refine_kernel`)."""
 
 from __future__ import annotations
 
@@ -93,16 +96,17 @@ class RefineResult(NamedTuple):
 
 
 def _residuals_and_normal_eqs(camera, pose, markers_h, det_xy, corr, corr_mask):
-    m_idx = torch.clamp(corr[:, 0].long(), 0, markers_h.shape[0] - 1)
-    d_idx = torch.clamp(corr[:, 1].long(), 0, det_xy.shape[0] - 1)
+    """pose (..., 4, 4), corr (..., C, 2), corr_mask (..., C)."""
+    m_idx = torch.clamp(corr[..., 0].long(), 0, markers_h.shape[0] - 1)
+    d_idx = torch.clamp(corr[..., 1].long(), 0, det_xy.shape[0] - 1)
     pts = markers_h[m_idx]
     uv_pred = project(camera, pose, pts)
     zero = torch.zeros((), dtype=torch.float32, device=pose.device)
-    e = torch.where(corr_mask[:, None], det_xy[d_idx] - uv_pred, zero)
-    max_resid = torch.max(torch.linalg.norm(e, dim=-1))
+    e = torch.where(corr_mask[..., None], det_xy[d_idx] - uv_pred, zero)
+    max_resid = torch.amax(torch.linalg.norm(e, dim=-1), dim=-1)
 
-    pc = torch.einsum("ij,cj->ci", pose[:3, :], pts)
-    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    pc = torch.einsum("...ij,...cj->...ci", pose[..., :3, :], pts)
+    x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
     z2 = z * z
     fx, fy = camera.fx, camera.fy
@@ -111,39 +115,42 @@ def _residuals_and_normal_eqs(camera, pose, markers_h, det_xy, corr, corr_mask):
                        -fx * y / z], dim=-1)
     j_v = torch.stack([zeros, fy / z, -fy * y / z2, -fy * (1 + y * y / z2), fy * x * y / z2,
                        fy * x / z], dim=-1)
-    jac = torch.where(corr_mask[:, None, None], torch.stack([j_u, j_v], dim=-2), zero)
-    a_mat = torch.einsum("cri,crj->ij", jac, jac)
-    b_vec = torch.einsum("cri,cr->i", jac, e)
-    return a_mat, b_vec, torch.sum(e * e), max_resid
+    jac = torch.where(corr_mask[..., None, None], torch.stack([j_u, j_v], dim=-2), zero)
+    a_mat = torch.einsum("...cri,...crj->...ij", jac, jac)
+    b_vec = torch.einsum("...cri,...cr->...i", jac, e)
+    return a_mat, b_vec, torch.sum(e * e, dim=(-2, -1)), max_resid
 
 
 def gauss_newton_refine(camera: Camera, pose0: torch.Tensor, markers_h: torch.Tensor,
                         det_xy: torch.Tensor, corr: torch.Tensor, corr_mask: torch.Tensor,
                         max_iterations: int = 50, convergence_tol: float = 1e-4) -> RefineResult:
-    """Refine one pose over a fixed iteration budget with a convergence mask
-    (converged poses stop moving), then the divergence revert."""
+    """Refine pose0 (..., 4, 4) against corr (..., C, 2) (marker,
+    detection) pairs masked by corr_mask (..., C), over a fixed iteration
+    budget with a convergence mask (converged poses stop moving), then the
+    divergence revert.  Each pose of a batch is refined on its own."""
     dev = pose0.device
+    batch = pose0.shape[:-2]
     damping = 1e-8 * torch.eye(6, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     _, _, err0, _ = _residuals_and_normal_eqs(camera, pose0, markers_h, det_xy, corr, corr_mask)
     pose = pose0
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    n_iter = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    n_iter = torch.zeros(batch, dtype=torch.int32, device=dev)
     for _ in range(max_iterations):
         a_mat, b_vec, _, _ = _residuals_and_normal_eqs(camera, pose, markers_h, det_xy, corr,
                                                        corr_mask)
         dt = solve6_spd(a_mat + damping, b_vec, refine=False)
         dt = torch.where(torch.isfinite(dt), dt, zero)
         new_pose = exp_se3(dt) @ pose
-        now_done = done | (torch.max(torch.abs(dt)) <= convergence_tol)
-        pose = torch.where(done, pose, new_pose)
+        now_done = done | (torch.amax(torch.abs(dt), dim=-1) <= convergence_tol)
+        pose = torch.where(done[..., None, None], pose, new_pose)
         n_iter = n_iter + (~done).to(torch.int32)
         done = now_done
     a_mat, _, err_final, max_resid = _residuals_and_normal_eqs(camera, pose, markers_h, det_xy,
                                                                corr, corr_mask)
     diverged = err_final > err0
     return RefineResult(
-        pose=torch.where(diverged, pose0, pose),
+        pose=torch.where(diverged[..., None, None], pose0, pose),
         covariance=inv6_spd(a_mat + damping),
         num_iterations=n_iter,
         final_error=torch.where(diverged, err0, err_final),

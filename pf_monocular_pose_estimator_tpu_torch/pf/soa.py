@@ -1,5 +1,6 @@
-"""Structure-of-arrays bank helpers and stratified resampling (port of
-`pf/soa.py`).  Layout: bank16[i * 4 + j, n] == pose_n[i, j]."""
+"""Structure-of-arrays bank helpers, the reference's XLA propagation and
+weight, and stratified resampling (port of `pf/soa.py`).
+Layout: bank16[i * 4 + j, n] == pose_n[i, j]."""
 
 from __future__ import annotations
 
@@ -7,55 +8,43 @@ import torch
 
 from ..utils import prng
 
-BIG = 3.0e37  # distance sentinel of masked cells (reference pf/pallas_weight.py::_BIG)
-
 
 def unpack(bank16: torch.Tensor) -> torch.Tensor:
     """(16, N) -> (N, 4, 4)."""
     return bank16.T.reshape(-1, 4, 4)
 
 
-def propagate_soa(bank16: torch.Tensor, lr: torch.Tensor, pin: torch.Tensor,
-                  prop: torch.Tensor, keys4, lane_offset: int = 0,
-                  n_total: int | None = None) -> torch.Tensor:
-    """The propagate half of kernel B with the Pallas kernel's semantics:
-    base = L @ T @ R always composed (identity L / R when not tracking),
-    six uniforms per particle from the threefry stream at counter
-    `r * n_total + global_lane`, Rz @ Ry @ Rx noise, lanes 0 / 1 pinned.
-
-    lr: (32,) left | right 4x4; pin: (32,) current | predicted pose;
-    prop: (12,) [lo, hi] per noise row (3 angles, 3 translations);
-    keys4: (k_rot0, k_rot1, k_trans0, k_trans1)."""
-    n = bank16.shape[1]
-    n_total = n if n_total is None else n_total
-    t = [bank16[i] for i in range(16)]
-    tr = []
+def compose_const_left(a: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
+    """A @ B for a constant (4, 4) A and a (16, N) bank B."""
+    rows = []
     for i in range(4):
         for j in range(4):
-            acc = t[i * 4 + 0] * lr[16 + 0 * 4 + j]
-            for kk in range(1, 4):
-                acc = acc + t[i * 4 + kk] * lr[16 + kk * 4 + j]
-            tr.append(acc)
-    base = []
+            acc = a[i, 0] * b16[0 * 4 + j]
+            for k in range(1, 4):
+                acc = acc + a[i, k] * b16[k * 4 + j]
+            rows.append(acc)
+    return torch.stack(rows)
+
+
+def compose_const_right(a16: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A @ B for a (16, N) bank A and a constant (4, 4) B."""
+    rows = []
     for i in range(4):
         for j in range(4):
-            acc = lr[i * 4 + 0] * tr[0 * 4 + j]
-            for kk in range(1, 4):
-                acc = acc + lr[i * 4 + kk] * tr[kk * 4 + j]
-            base.append(acc)
+            acc = a16[i * 4 + 0] * b[0, j]
+            for k in range(1, 4):
+                acc = acc + a16[i * 4 + k] * b[k, j]
+            rows.append(acc)
+    return torch.stack(rows)
 
-    glane = torch.arange(n, device=bank16.device, dtype=torch.int64) + lane_offset
-    nz = []
-    for row in range(6):
-        key = keys4[0:2] if row < 3 else keys4[2:4]
-        r = row if row < 3 else row - 3
-        u = prng.uniform_at(key, (r * n_total + glane) & prng.MASK)
-        lo, hi = prop[2 * row], prop[2 * row + 1]
-        nz.append(torch.maximum(lo, u * (hi - lo) + lo))
-    ca, sa = torch.cos(nz[0]), torch.sin(nz[0])
-    cb, sb = torch.cos(nz[1]), torch.sin(nz[1])
-    cc, sc = torch.cos(nz[2]), torch.sin(nz[2])
-    rn = (
+
+def rotation_entries(a, b, c):
+    """The 9 entries of Rz(c) @ Ry(b) @ Rx(a), in the reference's
+    expression order."""
+    ca, sa = torch.cos(a), torch.sin(a)
+    cb, sb = torch.cos(b), torch.sin(b)
+    cc, sc = torch.cos(c), torch.sin(c)
+    return (
         cc * cb,
         cc * sb * sa - sc * ca,
         cc * sb * ca + sc * sa,
@@ -66,83 +55,127 @@ def propagate_soa(bank16: torch.Tensor, lr: torch.Tensor, pin: torch.Tensor,
         cb * sa,
         cb * ca,
     )
+
+
+def noisy_rows(base, rn, dts) -> list:
+    """The 16 rows of base @ [Rn | dt], with Rn's 9 entries `rn` applied on
+    the right and the 3 translations `dts` added, in the reference's
+    expression order."""
     rows = []
     for i in range(4):
         for j in range(4):
             if j == 3:
-                v = base[i * 4 + 3] + nz[3 + i] if i < 3 else base[15]
+                rows.append(base[i * 4 + 3] + dts[i] if i < 3 else base[15])
             elif i == 3:
-                v = base[12 + j]
+                rows.append(base[12 + j])
             else:
-                v = base[i * 4 + 0] * rn[0 * 3 + j]
-                v = v + base[i * 4 + 1] * rn[1 * 3 + j]
-                v = v + base[i * 4 + 2] * rn[2 * 3 + j]
-            v = torch.where(glane == 0, pin[i * 4 + j], v)
-            v = torch.where(glane == 1, pin[16 + i * 4 + j], v)
-            rows.append(v)
-    return torch.stack(rows)
+                acc = base[i * 4 + 0] * rn[0 * 3 + j]
+                acc = acc + base[i * 4 + 1] * rn[1 * 3 + j]
+                acc = acc + base[i * 4 + 2] * rn[2 * 3 + j]
+                rows.append(acc)
+    return rows
 
 
-def weight_particles_soa(bank16: torch.Tensor, scal: torch.Tensor, mark: torch.Tensor,
-                         dets: torch.Tensor, downg: torch.Tensor) -> torch.Tensor:
-    """The weight half of kernel B with the Pallas kernel's semantics:
-    marker-major (m * K + k) M x K distance volume with the 3e37 sentinel,
-    M rounds of greedy first-minimum matching, score
-    `nms + ((tol_init - d) / tol_init)**2` minus reuse and downgrade
-    penalties.
+def propagate_soa(key, resampled16: torch.Tensor, current_pose, predicted_pose, prediction_matrix,
+                  cam_move_inv, noise, fac_trans, fac_rot, tracking: bool,
+                  apply_prediction: bool, inflation) -> torch.Tensor:
+    """The reference's XLA `propagate_soa` (its tracker's propagation when
+    `use_fused_pf_kernel` is off): base = L @ (T @ R) when tracking with
+    the prediction, L @ T when tracking without it, T itself otherwise;
+    `jax.random.uniform(k, (3, N), lo, hi)` draws for the angles (k_rot)
+    and translations (k_trans); Rz @ Ry @ Rx noise; lanes 0 / 1 set to the
+    current and predicted poses."""
+    dev = resampled16.device
+    n = resampled16.shape[1]
+    f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
+    k_rot, k_trans = prng.split(key)
+    if tracking and apply_prediction:
+        base = compose_const_left(f(cam_move_inv), compose_const_right(resampled16,
+                                                                       f(prediction_matrix)))
+    elif tracking:
+        base = compose_const_left(f(cam_move_inv), resampled16)
+    else:
+        base = resampled16
+    infl = f(inflation)
+    three = torch.ones(3, dtype=torch.float32, device=dev)
+    lo_a = f(noise.min_angular) * three * f(fac_rot) * infl
+    hi_a = f(noise.max_angular) * three * f(fac_rot) * infl
+    lo_t = f(noise.min_translation) * three * f(fac_trans) * infl
+    hi_t = f(noise.max_translation) * three * f(fac_trans) * infl
+    angles = prng.uniform(k_rot, (3, n), dev, lo_a[:, None], hi_a[:, None])
+    dts = prng.uniform(k_trans, (3, n), dev, lo_t[:, None], hi_t[:, None])
+    rows = noisy_rows(base, rotation_entries(angles[0], angles[1], angles[2]), dts)
+    bank16 = torch.stack(rows)
+    bank16[:, 0] = f(current_pose).reshape(16)
+    bank16[:, 1] = f(predicted_pose).reshape(16)
+    return bank16
 
-    scal: (8,) fx fy cx cy tol_pf tol_init num_markers_score 0; mark: (4M,)
-    xyz per marker | 0 or 3e37; dets: (3K,) xy per detection | 0 or 3e37;
-    downg: (M,) 0 or 2.  Returns the weights (N,)."""
-    m = downg.shape[0]
-    k = dets.shape[0] // 3
+
+def weight_particles_soa(camera, bank16: torch.Tensor, markers_h: torch.Tensor,
+                         marker_mask: torch.Tensor, det_xy: torch.Tensor, det_mask: torch.Tensor,
+                         tol_pf, tol_init, downgrade: torch.Tensor, num_markers_score=None):
+    """The reference's XLA `weight_particles_soa` (its weight when
+    `use_pallas_weight` is off): a detection-major (k * M + m) K x M
+    volume with masked cells set to finfo.max / 4, first-minimum greedy
+    matching -> (weights (N,), pairs (M, 2, N) int32, n_corr (N,) int32).
+    Kernels B and E break ties marker-major instead (pf.weight_kernel)."""
+    m = markers_h.shape[0]
+    k_cap = det_xy.shape[0]
     n = bank16.shape[1]
     dev = bank16.device
-    rows = bank16
-    fx, fy, cx, cy, tol_pf, tol_init, nms = (scal[i] for i in range(7))
-    dist = []
-    for mi in range(m):
-        mx, my, mz = mark[3 * mi], mark[3 * mi + 1], mark[3 * mi + 2]
-        mbig = mark[3 * m + mi]
-        xc = rows[0] * mx + rows[1] * my + rows[2] * mz + rows[3]
-        yc = rows[4] * mx + rows[5] * my + rows[6] * mz + rows[7]
-        zc = rows[8] * mx + rows[9] * my + rows[10] * mz + rows[11]
-        safe_z = torch.where(torch.abs(zc) < 1e-12, torch.full_like(zc, 1e-12), zc)
-        u = fx * xc / safe_z + cx
-        v = fy * yc / safe_z + cy
-        for ki in range(k):
-            du = dets[2 * ki] - u
-            dv = dets[2 * ki + 1] - v
-            dist.append(du * du + dv * dv + dets[2 * k + ki] + mbig)
-    dist = torch.stack(dist)  # (M*K, N)
+    f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
+    big = torch.tensor(torch.finfo(torch.float32).max / 4, dtype=torch.float32, device=dev)
+    if num_markers_score is None:
+        num_markers_score = torch.sum(marker_mask.float())
+    x, y, z = (markers_h[:, i][:, None] for i in range(3))
+    xc = bank16[0][None] * x + bank16[1][None] * y + bank16[2][None] * z + bank16[3][None]
+    yc = bank16[4][None] * x + bank16[5][None] * y + bank16[6][None] * z + bank16[7][None]
+    zc = bank16[8][None] * x + bank16[9][None] * y + bank16[10][None] * z + bank16[11][None]
+    safe_z = torch.where(torch.abs(zc) < 1e-12, torch.full_like(zc, 1e-12), zc)
+    u = camera.fx * xc / safe_z + camera.cx  # (M, N)
+    v = camera.fy * yc / safe_z + camera.cy
+    du = det_xy[:, 0][:, None, None] - u[None]  # (K, M, N)
+    dv = det_xy[:, 1][:, None, None] - v[None]
+    dist2 = du * du + dv * dv
+    invalid = (~det_mask)[:, None, None] | (~marker_mask)[None, :, None]
+    dist2 = torch.where(invalid, big, dist2)
+    tol_pf, tol_init = f(tol_pf), f(tol_init)
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    big = torch.full((), BIG, dtype=torch.float32, device=dev)
     weights = torch.zeros(n, dtype=torch.float32, device=dev)
-    nself = torch.ones(n, dtype=torch.float32, device=dev)
+    pairs = torch.full((m, 2, n), -1, dtype=torch.int32, device=dev)
+    n_corr = torch.zeros(n, dtype=torch.int32, device=dev)
+    used_det = torch.zeros((k_cap, n), dtype=torch.int32, device=dev)
+    n_self_occ = torch.ones(n, dtype=torch.float32, device=dev)
     done = torch.zeros(n, dtype=torch.bool, device=dev)
-    used = torch.zeros((k, n), dtype=torch.float32, device=dev)
-    m_of_row = (torch.arange(m * k, device=dev) // k)[:, None]
-    for _ in range(m):
-        minv = torch.min(dist, dim=0).values
-        idx = torch.argmax((dist == minv[None]).to(torch.int32), dim=0)  # first minimum
-        m_sel = idx // k
-        k_sel = idx - m_sel * k
-        d = torch.sqrt(torch.clamp(minv, min=0.0))
+    for step in range(m):
+        flat = dist2.reshape(k_cap * m, n)
+        min_val = torch.min(flat, dim=0).values
+        idx = torch.argmax((flat == min_val[None]).to(torch.int32), dim=0)  # first minimum
+        d = torch.sqrt(torch.clamp(min_val, min=0.0))
+        row = idx // m  # detection
+        col = idx - row * m  # marker
         ok = (d <= tol_pf) & ~done
         done = done | ~ok
-        q = (tol_init - d) / tol_init
-        score = nms + q * q
-        reused = torch.gather(used, 0, k_sel[None])[0]
-        occ_hit = ok & (reused > 0.0)
-        penal_occ = torch.where(occ_hit, 3.0 * nself, zero)
-        nself = nself + torch.where(occ_hit, one, zero)
-        penal_down = torch.where(ok, downg[m_sel], zero)
+        score = num_markers_score + ((tol_init - d) / tol_init) ** 2
+        row_onehot = torch.arange(k_cap, device=dev)[:, None] == row[None, :]
+        reused = torch.sum(torch.where(row_onehot, used_det, 0), dim=0) > 0
+        penal_occ = torch.where(ok & reused, 3.0 * n_self_occ, zero)
+        n_self_occ = n_self_occ + (ok & reused).float()
+        penal_down = torch.where(ok & downgrade[col], torch.full_like(zero, 2.0), zero)
         weights = weights + torch.where(ok, score, zero) - penal_occ - penal_down
-        used = used + ((torch.arange(k, device=dev)[:, None] == k_sel[None]) & ok[None]).float()
-        dist = torch.where((m_of_row == m_sel[None]) & ok[None], big, dist)
-    return weights
+        pairs[step, 0] = torch.where(ok, col.to(torch.int32), -1)
+        pairs[step, 1] = torch.where(ok, row.to(torch.int32), -1)
+        n_corr = n_corr + ok.to(torch.int32)
+        used_det = used_det + (row_onehot & ok[None, :]).to(torch.int32)
+        retire = (torch.arange(m, device=dev)[None, :, None] == col[None, None, :]) & ok[None, None]
+        dist2 = torch.where(retire, big, dist2)
+    return weights, pairs, n_corr
+
+
+def gather_soa(bank16: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Resampling gather in SoA layout: (16, N)[:, idx]."""
+    return bank16.index_select(1, indices.long())
 
 
 def pick_lane(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -223,4 +256,33 @@ def stratified_resample_soa(key, weights: torch.Tensor):
     ancestors = torch.clamp(torch.searchsorted(ck, qk), 0, n - 1)
     draws_leq = torch.searchsorted(qk, ck)
     counts = torch.diff(draws_leq, prepend=torch.zeros(1, dtype=draws_leq.dtype, device=dev))
+    return ancestors, counts, torch.argmax(counts)
+
+
+def stratified_resample_closed(key, weights: torch.Tensor):
+    """Sort-free stratified resampling (`use_closed_form_resample`): the
+    same draws and assignment rule as `stratified_resample_soa`, with the
+    CDF's seam pockets repaired by a cummax instead of a value sort.
+    rank_j = #{draws <= cdf_j} from six threefry probes around
+    floor(n * cdf_j) (exact for 8 <= n <= 2**22), then
+    ancestors[i] = #{j : rank_j <= i} by one scatter-max and a cummax.
+    Returns (ancestors (N,) int64, counts (N,) int32, most (0-d int64))."""
+    n = weights.shape[0]
+    if n < 8 or n > (1 << 22):
+        return stratified_resample_soa(key, weights)
+    dev = weights.device
+    cdf = torch.cummax(chunked_cdf_norm(weights, default_cdf_chunk(n)), dim=0).values
+    nf = torch.tensor(float(n), dtype=torch.float32, device=dev)
+    k = torch.floor(cdf * nf).to(torch.int32)
+    k_c = torch.clamp(k, 3, n - 3)
+    rank = k_c - 3
+    for d in (-3, -2, -1, 0, 1, 2):
+        probe = k_c + d
+        u_probe = (probe.float() + prng.uniform_at(key, probe)) / nf
+        rank = rank + (u_probe <= cdf).to(torch.int32)
+    iota1 = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    bins = torch.zeros(n + 1, dtype=torch.int32, device=dev).scatter_reduce(
+        0, rank.long(), iota1, "amax")
+    ancestors = torch.clamp(torch.cummax(bins, dim=0).values[:n], 0, n - 1).long()
+    counts = torch.diff(rank, prepend=torch.zeros(1, dtype=torch.int32, device=dev))
     return ancestors, counts, torch.argmax(counts)

@@ -1,12 +1,17 @@
 """PF iteration kernel B (csrc/pf_step.cu) and resample-gather kernel C
 (csrc/resample_gather.cu), each with its plain PyTorch version.
 
-Kernel B ports `pf/pallas_step.py::fused_propagate_weight_pallas` (folded
-variant) with its semantics: L @ T @ R compose in the kernel's FMA-free
-expression order, six threefry uniforms per particle at counter
-`r * n_total + global_lane` (the jax.random stream), Rz @ Ry @ Rx noise,
-lanes 0/1 pinned, marker-major greedy matching.  Kernel C ports
-`bank_top_pin` -> `gather_soa` -> `bank_restore_pin` as one gather.
+Kernel B ports `pf/pallas_step.py::fused_propagate_weight_pallas` with
+its semantics: L @ T @ R compose in the kernel's FMA-free expression order,
+six threefry uniforms per particle at counter `r * n_total + global_lane`
+(the jax.random stream), Rz @ Ry @ Rx noise, lanes 0/1 pinned, then the
+marker-major greedy weight of kernel E (`pf.weight_kernel`).  With
+`want_pairs` it also returns each particle's greedy pairs and pair count
+(the reference's straight variant, #4).  The reference's folded variant
+(#3) is a TPU layout of the same computation (its tests pin folded ==
+straight bit for bit), so `use_folded_pf_kernel` selects nothing here:
+both settings run kernel B.  Kernel C ports `bank_top_pin` ->
+`gather_soa` -> `bank_restore_pin` as one gather.
 
 Kernel B's parameter vector (float32, on the bank's device):
   lr[32] (left 4x4 | right 4x4) | pin[32] (current | predicted pose)
@@ -20,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda_lib, prng
-from . import soa
+from .soa import compose_const_left, compose_const_right, noisy_rows, rotation_entries
+from .weight_kernel import pack_weight_params, weight_plain
 
 
 def n_params(m: int, k: int) -> int:
@@ -32,38 +38,56 @@ def pack_params(left, right, current_pose, predicted_pose, lo, hi, scal, markers
     """Build kernel B's parameter vector from tensors on one device."""
     dev = det_xy.device
     f = lambda t: t.to(device=dev, dtype=torch.float32).reshape(-1)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    big = torch.full((), soa.BIG, dtype=torch.float32, device=dev)
     prop = torch.stack([f(lo), f(hi)], dim=1).reshape(-1)
     return torch.cat([
-        f(left), f(right), f(current_pose), f(predicted_pose), prop, f(scal),
-        f(markers_h[:, :3]), torch.where(marker_mask, zero, big),
-        f(det_xy), torch.where(det_mask, zero, big),
-        torch.where(downgrade, torch.full_like(zero, 2.0), zero),
+        f(left), f(right), f(current_pose), f(predicted_pose), prop,
+        pack_weight_params(scal, markers_h, marker_mask, det_xy, det_mask, downgrade),
     ])
 
 
-def unpack_params(prm: torch.Tensor, m: int, k: int):
-    """Kernel B's parameter vector -> (lr, pin, prop, scal, mark, dets, downg)."""
-    mark0 = 84
-    dets0 = mark0 + 4 * m
-    down0 = dets0 + 3 * k
-    return (prm[0:32], prm[32:64], prm[64:76], prm[76:84], prm[mark0:dets0], prm[dets0:down0],
-            prm[down0 : down0 + m])
+def propagate_plain(bank16: torch.Tensor, lr: torch.Tensor, pin: torch.Tensor,
+                    prop: torch.Tensor, keys4, lane_offset: int = 0,
+                    n_total: int | None = None) -> torch.Tensor:
+    """The propagate half of kernel B with the Pallas kernel's semantics:
+    base = L @ T @ R always composed (identity L / R when not tracking),
+    six uniforms per particle from the threefry stream at counter
+    `r * n_total + global_lane`, Rz @ Ry @ Rx noise, lanes 0 / 1 pinned.
+
+    lr: (32,) left | right 4x4; pin: (32,) current | predicted pose;
+    prop: (12,) [lo, hi] per noise row (3 angles, 3 translations);
+    keys4: (k_rot0, k_rot1, k_trans0, k_trans1)."""
+    n = bank16.shape[1]
+    n_total = n if n_total is None else n_total
+    base = compose_const_left(lr[:16].reshape(4, 4),
+                              compose_const_right(bank16, lr[16:].reshape(4, 4)))
+    glane = torch.arange(n, device=bank16.device, dtype=torch.int64) + lane_offset
+    nz = []
+    for row in range(6):
+        key = keys4[0:2] if row < 3 else keys4[2:4]
+        r = row if row < 3 else row - 3
+        u = prng.uniform_at(key, (r * n_total + glane) & prng.MASK)
+        lo, hi = prop[2 * row], prop[2 * row + 1]
+        nz.append(torch.maximum(lo, u * (hi - lo) + lo))
+    rows = noisy_rows(base, rotation_entries(nz[0], nz[1], nz[2]), nz[3:])
+    return torch.stack([torch.where(glane == 1, pin[16 + i], torch.where(glane == 0, pin[i], v))
+                        for i, v in enumerate(rows)])
 
 
 def pf_step_plain(bank16: torch.Tensor, prm: torch.Tensor, keys4, m: int, k: int,
-                  lane_offset: int = 0, n_total: int | None = None):
+                  lane_offset: int = 0, n_total: int | None = None, want_pairs: bool = False):
     """Plain twin of `pf_step`: same expressions, same order, same draws."""
-    lr, pin, prop, scal, mark, dets, downg = unpack_params(prm, m, k)
-    bank_out = soa.propagate_soa(bank16, lr, pin, prop, keys4, lane_offset, n_total)
-    return bank_out, soa.weight_particles_soa(bank_out, scal, mark, dets, downg)
+    bank_out = propagate_plain(bank16, prm[0:32], prm[32:64], prm[64:76], keys4, lane_offset,
+                               n_total)
+    w, pairs, n_corr = weight_plain(bank_out, prm[76:], m, k)
+    return (bank_out, w, pairs, n_corr) if want_pairs else (bank_out, w)
 
 
 def pf_step(bank16: torch.Tensor, prm: torch.Tensor, keys4, m: int, k: int,
-            lane_offset: int = 0, n_total: int | None = None):
-    """One fused propagate+weight pass over a (16, N) bank -> (bank16', w (N,)).
-    Kernel #3 of the port.  keys4 = (k_rot0, k_rot1, k_trans0, k_trans1)."""
+            lane_offset: int = 0, n_total: int | None = None, want_pairs: bool = False):
+    """One fused propagate+weight pass over a (16, N) bank -> (bank16', w (N,)),
+    with `want_pairs` -> (bank16', w, pairs (M, 2, N) int32, n_corr (N,)
+    int32).  Kernels #3 and #4 of the port (B).  keys4 = (k_rot0, k_rot1,
+    k_trans0, k_trans1)."""
     if bank16.dtype != torch.float32 or bank16.dim() != 2 or bank16.shape[0] != 16:
         raise ValueError("pf_step: bank must be a (16, N) float32 tensor")
     if prm.dtype != torch.float32 or prm.numel() != n_params(m, k):
@@ -71,31 +95,42 @@ def pf_step(bank16: torch.Tensor, prm: torch.Tensor, keys4, m: int, k: int,
     n = bank16.shape[1]
     n_total = n if n_total is None else n_total
     if bank16.device.type == "cpu":
-        return pf_step_plain(bank16, prm, keys4, m, k, lane_offset, n_total)
+        return pf_step_plain(bank16, prm, keys4, m, k, lane_offset, n_total, want_pairs)
     cuda_lib.require_cuda("pf_step", bank16, prm)
     if k != 16 or not 3 <= m <= 8:
         raise ValueError("pf_step: the kernel takes K = 16 detections and 3 <= M <= 8 markers")
     lib = cuda_lib.library()
+    dev = bank16.device
     out = torch.empty_like(bank16)
-    w = torch.empty(n, dtype=torch.float32, device=bank16.device)
+    w = torch.empty(n, dtype=torch.float32, device=dev)
+    pairs = torch.empty((m, 2, n), dtype=torch.int32, device=dev) if want_pairs else None
+    n_corr = torch.empty(n, dtype=torch.int32, device=dev) if want_pairs else None
     code = lib.pfmpe_pf_step(bank16.data_ptr(), prm.data_ptr(), n, m, k, *(int(x) for x in keys4),
                              lane_offset, n_total, out.data_ptr(), w.data_ptr(),
+                             pairs.data_ptr() if want_pairs else None,
+                             n_corr.data_ptr() if want_pairs else None,
                              cuda_lib.stream_ptr(bank16))
-    pf_step.launches += 1
+    if want_pairs:
+        pf_step.pairs_launches += 1
+    else:
+        pf_step.launches += 1
     cuda_lib.check(code, "pfmpe_pf_step")
-    return out, w
+    return (out, w, pairs, n_corr) if want_pairs else (out, w)
 
 
-pf_step.launches = 0
+pf_step.launches = 0  # weights only (the tracker's kernel B)
+pf_step.pairs_launches = 0  # with pairs (the straight variant's output, #4)
 
 
 def fused_propagate_weight(key, resampled16, current_pose, predicted_pose, prediction_matrix,
                            cam_move_inv, noise, fac_trans, fac_rot, tracking: bool,
                            apply_prediction: bool, inflation: float, camera, markers_h,
                            marker_mask, det_xy, det_mask, tol_pf, tol_init, downgrade,
-                           num_markers_score=None):
-    """Counterpart of the reference's `fused_propagate_weight_pallas`
-    (want_pairs=False) -> (bank16, weights)."""
+                           num_markers_score=None, want_pairs: bool = True):
+    """Counterpart of the reference's `fused_propagate_weight_pallas` (either
+    variant: `folded` has no counterpart on the card) -> (bank16, weights,
+    pairs (M, 2, N), n_corr (N,)), or (bank16, weights) with
+    want_pairs=False."""
     dev = resampled16.device
     f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
     k_rot, k_trans = prng.split(key)
@@ -116,7 +151,7 @@ def fused_propagate_weight(key, resampled16, current_pose, predicted_pose, predi
     prm = pack_params(left, right, current_pose, predicted_pose, lo, hi, scal, markers_h,
                       marker_mask, det_xy, det_mask, downgrade)
     return pf_step(resampled16.contiguous(), prm, (*k_rot, *k_trans), markers_h.shape[0],
-                   det_xy.shape[0])
+                   det_xy.shape[0], want_pairs=want_pairs)
 
 
 def resample_gather_plain(bank16: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:

@@ -49,8 +49,9 @@ class TargetState:
     exposure_us: torch.Tensor  # float32
 
     @classmethod
-    def create(cls, n_particles: int, key=None, image_size=(752, 480), device="cpu",
+    def create(cls, n_particles: int, key=None, image_size=(752, 480), device="cuda",
                expose_time_base: float = 2000.0) -> "TargetState":
+        """Initial state on `device` (the card unless asked otherwise)."""
         if key is None:
             key = prng.prng_key(0)
         f32 = dict(dtype=torch.float32, device=device)

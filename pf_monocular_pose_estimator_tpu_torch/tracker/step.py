@@ -13,9 +13,11 @@ grown and detection retried), the best weight after every PF pass (1 per
 pass), and the accept / marginal / ESS gates read together (1).  A
 marginal frame adds up to two more (short-P3P).
 
-Ported: the init branch and the particle-filter track branch with the
-reference's defaults.  Options that are not ported raise
-NotImplementedError (`utils.config.check_ported`).
+Ported: the init branch and the particle-filter track branch, with every
+single-device PF, resample and Gauss-Newton switch of `TrackerConfig`.
+Options that are not ported raise NotImplementedError
+(`utils.config.check_ported`).  With `use_pallas_resample` a frame that
+resamples reads the decode's coverage flag on the host (one more sync).
 """
 
 from __future__ import annotations
@@ -29,9 +31,18 @@ from ..ops.blob import Detections, determine_roi, find_leds, grow_roi
 from ..pf.propagate import NoiseBounds, propagation_noise_factors
 from ..pf.refine import gauss_newton_refine
 from ..pf.refine_kernel import gauss_newton_refine_batched
-from ..pf.soa import pick_lane, stratified_resample_soa, unpack
+from ..pf.resample_kernel import resample_bank
+from ..pf.soa import (
+    pick_lane,
+    propagate_soa,
+    stratified_resample_closed,
+    stratified_resample_soa,
+    unpack,
+    weight_particles_soa,
+)
 from ..pf.step_kernel import fused_propagate_weight, resample_gather
 from ..pf.weight import weight_particles
+from ..pf.weight_kernel import weight_particles_bank
 from ..utils import prng
 from ..utils.config import TrackerConfig, check_ported
 from ..utils.dynamic import DynamicParams
@@ -51,10 +62,13 @@ class Tracker:
     """`step(state, image, t) -> (state', FrameResult)` on one device.
 
     `host.count` counts the device -> host reads so far and `frames` the
-    frames stepped, so `host.count / frames` is the syncs per frame."""
+    frames stepped, so `host.count / frames` is the syncs per frame.  With
+    `use_pallas_resample`, `decoded_frames` and `fallback_frames` list the
+    frames whose resampling took the decode's result and the sort path's.
+    The tracker runs on the card unless `device` says otherwise."""
 
     def __init__(self, camera: Camera, markers_h, marker_mask, config: TrackerConfig,
-                 device="cpu"):
+                 device="cuda"):
         check_ported(config)
         self.config = config
         self.device = torch.device(device)
@@ -71,6 +85,8 @@ class Tracker:
         self.params = config.blob_params()
         self.host = HostReads()
         self.frames = 0
+        self.decoded_frames: list[int] = []
+        self.fallback_frames: list[int] = []
 
     # ------------------------------------------------------------ helpers
     def _t(self, v, dtype=torch.float32) -> torch.Tensor:
@@ -281,14 +297,22 @@ class Tracker:
         resampled16 = state.resampled
 
         def pf_compute(pf_it: int, k):
-            inflation = _F32(1.0) + _F32(dyn_host["noise_inflation_per_10_iters"]) * np.floor(
-                _F32(pf_it) / _F32(10.0))
-            return fused_propagate_weight(
-                k, resampled16, state.current_pose, predicted, prediction, cam_move_inv, noise,
-                fac_t, fac_r, tracking, tracking and (pf_it % 10 != 0), float(inflation),
-                self.camera, self.markers_h, self.marker_mask, det.xy, det.mask,
-                dyn.back_projection_pixel_tolerance_pf, dyn.back_projection_pixel_tolerance,
-                self.downgrade, float(m_f))
+            inflation = float(_F32(1.0) + _F32(dyn_host["noise_inflation_per_10_iters"])
+                              * np.floor(_F32(pf_it) / _F32(10.0)))
+            apply_pred = tracking and (pf_it % 10 != 0)
+            weigh = (self.markers_h, self.marker_mask, det.xy, det.mask,
+                     dyn.back_projection_pixel_tolerance_pf, dyn.back_projection_pixel_tolerance,
+                     self.downgrade, float(m_f))
+            if c.use_fused_pf_kernel:
+                return fused_propagate_weight(
+                    k, resampled16, state.current_pose, predicted, prediction, cam_move_inv,
+                    noise, fac_t, fac_r, tracking, apply_pred, inflation, self.camera, *weigh,
+                    want_pairs=False)
+            bank_i = propagate_soa(k, resampled16, state.current_pose, predicted, prediction,
+                                   cam_move_inv, noise, fac_t, fac_r, tracking, apply_pred,
+                                   inflation)
+            weight_fn = weight_particles_bank if c.use_pallas_weight else weight_particles_soa
+            return bank_i, weight_fn(self.camera, bank_i, *weigh)[0]
 
         key, k_loop = prng.split(key)
         state = state.replace(key=torch.tensor(key, dtype=torch.int64))
@@ -393,8 +417,15 @@ class Tracker:
         c = self.config
         dev = self.device
         if c.resample_min_ess <= 0.0 or ess_h < c.resample_min_ess:
-            anc, _counts, most = stratified_resample_soa(key, weights_norm)
-            resampled16 = resample_gather(bank16, anc)
+            if c.use_pallas_resample:
+                resampled16, most, decoded = resample_bank(key, weights_norm, bank16,
+                                                           _sort_resample, self.host)
+                (self.decoded_frames if decoded else self.fallback_frames).append(self.frames)
+            else:
+                resample = (stratified_resample_closed if c.use_closed_form_resample
+                            else stratified_resample_soa)
+                anc, _counts, most = resample(key, weights_norm)
+                resampled16 = resample_gather(bank16, anc)
         else:
             resampled16, most = bank16, argmax_idx
 
@@ -431,9 +462,16 @@ class Tracker:
 
         corr_masks = (dfm_h >= 0) & self.marker_mask[None, :]
         n_h = corr_masks.shape[0]
-        res = gauss_newton_refine_batched(self.camera, pre_gn[None].expand(n_h, 4, 4), self.markers_h,
-                                          det.xy, dfm_h, corr_masks, c.gn_max_iterations,
-                                          c.gn_convergence_tol)
+        poses0 = pre_gn[None].expand(n_h, 4, 4)
+        if c.use_pallas_gn:
+            res = gauss_newton_refine_batched(self.camera, poses0, self.markers_h, det.xy, dfm_h,
+                                              corr_masks, c.gn_max_iterations,
+                                              c.gn_convergence_tol)
+        else:
+            corrs = torch.stack([marker_ids[None, :].expand(n_h, m_cap).to(dfm_h.dtype), dfm_h],
+                                dim=-1)
+            res = gauss_newton_refine(self.camera, poses0, self.markers_h, det.xy, corrs,
+                                      corr_masks, c.gn_max_iterations, c.gn_convergence_tol)
         n_pairs = torch.sum(corr_masks, dim=-1).float()
         local = torch.linalg.norm(res.pose[:, :3, 3] - pre_gn[:3, 3][None], dim=-1) <= c.gn_step_radius
         feasible = (res.max_residual <= c.gn_residual_gate) & (n_pairs > 0) & local
@@ -457,7 +495,14 @@ class Tracker:
         return self._update_pose_times(state, t, pose), jump
 
 
+def _sort_resample(key, weights, bank16):
+    """The sort path with kernel C: `resample_bank`'s fallback."""
+    anc, _counts, most = stratified_resample_soa(key, weights)
+    return resample_gather(bank16, anc), most
+
+
 def make_tracker(camera: Camera, markers_h, marker_mask, config: TrackerConfig,
-                 device="cpu") -> Tracker:
-    """Build the per-frame step for one target on `device`."""
+                 device="cuda") -> Tracker:
+    """Build the per-frame step for one target on `device` (the card unless
+    asked otherwise)."""
     return Tracker(camera, markers_h, marker_mask, config, device)

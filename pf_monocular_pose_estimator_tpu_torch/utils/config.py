@@ -174,15 +174,6 @@ _UNPORTED = (
     ("use_cam_pos", True, "ROADMAP.md 'Modules still to port', item 2 (ego-motion)"),
     ("use_online_exposure_control", True,
      "ROADMAP.md 'Modules still to port', item 1 (faults and exposure)"),
-    ("use_pallas_resample", True,
-     "ROADMAP.md 'TPU kernels still to port', item 4 (resample_bank_pallas)"),
-    ("use_closed_form_resample", True,
-     "ROADMAP.md 'Modules still to port', item 8 (opt-in paths)"),
-    ("use_fused_pf_kernel", False,
-     "ROADMAP.md 'TPU kernels still to port', item 3 (weight_particles_pallas)"),
-    ("use_folded_pf_kernel", False,
-     "ROADMAP.md 'TPU kernels still to port', item 1 (the straight PF kernel)"),
-    ("use_pallas_gn", False, "ROADMAP.md 'Modules still to port', item 8 (opt-in paths)"),
 )
 
 

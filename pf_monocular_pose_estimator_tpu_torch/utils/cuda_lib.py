@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
 The library is compiled by `nvcc` at first use into `build/torch_kernels/`
-at the repository root, named after a hash of the sources and flags, so an edited source rebuilds and an unchanged one
-loads in milliseconds.  Each C entry point takes the CUDA stream, allocates
-nothing and returns `cudaGetLastError()`; `check()` raises on a non-zero
-code.  Nothing here runs at import time.
+at the repository root, named after a hash of the sources, headers and
+flags, so an edited source rebuilds and an unchanged one loads in
+milliseconds.  Each source compiles in its own `nvcc` process, all started
+together, and one more `nvcc` links the objects.  Each C entry point
+takes the CUDA stream, allocates nothing and returns `cudaGetLastError()`;
+`check()` raises on a non-zero code.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,11 +23,11 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("detect.cu", "pf_step.cu", "resample_gather.cu", "gn_refine.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-)
+SOURCES = ("detect.cu", "pf_step.cu", "pf_weight.cu", "resample_gather.cu", "resample_decode.cu",
+           "monotone_gather.cu", "gn_refine.cu")
+HEADERS = ("pf_common.cuh", "window.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,8 +36,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pfmpe_threshold_blur": (_P, _P, _I, _I, _I, _I, _P, _P),
     "pfmpe_detect_stats": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    "pfmpe_pf_step": (_P, _P, _I, _I, _I, _U, _U, _U, _U, _I, _I, _P, _P, _P),
+    "pfmpe_pf_step": (_P, _P, _I, _I, _I, _U, _U, _U, _U, _I, _I, _P, _P, _P, _P, _P),
+    "pfmpe_pf_weight": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "pfmpe_resample_gather": (_P, _P, _I, _P, _P),
+    "pfmpe_resample_decode": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "pfmpe_monotone_gather": (_P, _P, _I, _I, _I, _P, _P, _P),
     "pfmpe_gn_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
 }
 
@@ -60,10 +65,33 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _build(so: Path) -> None:
+    """One nvcc per source, all running at once, then one link into `so`."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / name)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for name, obj in zip(SOURCES, objs)]
+        errors = []
+        for name, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        out = os.path.join(tmp, so.name)
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", out, *objs], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(out, so)
 
 
 def library() -> ctypes.CDLL:
@@ -76,14 +104,7 @@ def library() -> ctypes.CDLL:
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"libpfmpe_kernels_{_digest()}.so"
     if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(_CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)
+        _build(so)
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -79,6 +79,19 @@ def test_port_never_imports_jax():
         dict(number_of_occlusions=1),
         dict(number_of_false_detections=2),
         dict(use_online_exposure_control=True),
+    ],
+)
+def test_unported_options_raise(override):
+    cam = Camera.create(400.0, 400.0, 376.0, 240.0)
+    markers = torch.cat([torch.rand(5, 3), torch.ones(5, 1)], 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_tracker(cam, markers, torch.ones(5, dtype=torch.bool), TrackerConfig(**override),
+                     device="cpu")
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
         dict(use_pallas_resample=True),
         dict(use_closed_form_resample=True),
         dict(use_fused_pf_kernel=False),
@@ -86,11 +99,38 @@ def test_port_never_imports_jax():
         dict(use_pallas_gn=False),
     ],
 )
-def test_unported_options_raise(override):
+def test_ported_switches_run(override):
+    """Each single-device switch builds a tracker on the CPU and tracks the
+    first two golden frames (init, then a PF frame that resamples)."""
+    d = np.load(PORT.parent / "tests" / "golden" / "golden_sequence.npz")
+    cam = Camera.create(float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
+                        np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
+    markers = torch.from_numpy(np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1))
+    config = TrackerConfig(n_particles=2048, min_blob_area=8.0, pf_max_retries=2,
+                           resample_min_ess=0.0, **override)
+    step = make_tracker(cam, markers, torch.ones(5, dtype=torch.bool), config, device="cpu")
+    state = TargetState.create(2048, device="cpu")
+    for i in range(2):
+        state, res = step(state, torch.from_numpy(d["frames"][i]), float(d["times"][i]))
+        assert bool(res.pose_updated), f"frame {i} not updated"
+    assert np.isfinite(res.pose.numpy()).all()
+
+
+def test_entry_points_default_to_the_card():
+    """make_tracker and TargetState.create place their tensors on "cuda"
+    unless asked for the CPU; without a card they raise, never fall back."""
     cam = Camera.create(400.0, 400.0, 376.0, 240.0)
     markers = torch.cat([torch.rand(5, 3), torch.ones(5, 1)], 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_tracker(cam, markers, torch.ones(5, dtype=torch.bool), TrackerConfig(**override))
+    mask = torch.ones(5, dtype=torch.bool)
+    config = TrackerConfig(n_particles=64)
+    if torch.cuda.is_available():
+        assert make_tracker(cam, markers, mask, config).device.type == "cuda"
+        assert TargetState.create(64).bank.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make_tracker(cam, markers, mask, config)
+        with pytest.raises((AssertionError, RuntimeError)):
+            TargetState.create(64)
 
 
 def test_camera_markers_dynamic_converters():

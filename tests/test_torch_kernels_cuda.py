@@ -13,8 +13,11 @@ import torch
 
 from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3
 from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
+from pf_monocular_pose_estimator_tpu_torch.pf import gather_kernel as gk
 from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel as rk
+from pf_monocular_pose_estimator_tpu_torch.pf import resample_kernel as fk
 from pf_monocular_pose_estimator_tpu_torch.pf import step_kernel as sk
+from pf_monocular_pose_estimator_tpu_torch.pf import weight_kernel as wk
 from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
 from pf_monocular_pose_estimator_tpu_torch.utils import prng
 
@@ -96,6 +99,74 @@ def test_pf_step_matches_plain(dev, n, offset):
     assert float(got_w.max()) > 20.0
 
 
+def test_pf_step_pairs_matches_plain(dev):
+    rng = np.random.default_rng(3)
+    bank, prm = _pf_inputs(dev, 5000, rng)
+    keys = (11, 12, 13, 14)
+    got = sk.pf_step(bank, prm, keys, 5, 16, want_pairs=True)
+    want = sk.pf_step_plain(bank, prm, keys, 5, 16, want_pairs=True)
+    weights_only = sk.pf_step(bank, prm, keys, 5, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert float((got[1] == want[1]).float().mean()) >= 0.9999
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[0], weights_only[0]) and torch.equal(got[1], weights_only[1])
+
+
+def test_weight_kernel_matches_plain(dev):
+    rng = np.random.default_rng(5)
+    bank, prm = _pf_inputs(dev, 7001, rng)
+    got = wk.weight(bank, prm[76:].contiguous(), 5, 16)
+    want = wk.weight_plain(bank, prm[76:], 5, 16)
+    torch.cuda.synchronize()
+    assert float((got[0] == want[0]).float().mean()) >= 0.9999
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert int(got[2].max()) >= 4
+
+
+@pytest.mark.parametrize("profile", ["covered", "spread"])
+def test_resample_decode_matches_plain(dev, profile):
+    n = 20_000
+    gen = torch.Generator().manual_seed(1)
+    if profile == "covered":
+        w = torch.softmax(0.8 * torch.randn(n, generator=gen), 0)
+    else:
+        lane = torch.arange(n)
+        w = torch.where(lane < n // 2, (lane % 8 == 0).float(), torch.ones(n))
+        w = w / w.sum()
+    bank = torch.randn(16, n, generator=gen).to(dev)
+    rank, counts, _ = fk.probe_rank(prng.prng_key(2), w.to(dev))
+    out, ok = fk.decode(rank, bank)
+    out_p, ok_p = fk.decode_plain(rank, bank)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p) and torch.equal(out, out_p)
+    assert bool(ok.all()) == (profile == "covered")
+    if profile == "covered":
+        anc = torch.repeat_interleave(torch.arange(n, device=dev), counts.long())
+        assert torch.equal(out, bank[:, anc])
+
+
+@pytest.mark.parametrize("spread", [False, True])
+def test_monotone_gather_matches_plain(dev, spread):
+    # n a multiple of 128: the coverage rule's last window start,
+    # (n - 2048) // 128 * 128, then reaches the bank's last lane
+    n = 20_480
+    rng = np.random.default_rng(8)
+    bank, prm = _pf_inputs(dev, n, rng)
+    if spread:
+        anc = torch.cat([torch.zeros(256), torch.full((n - 256,), n - 1)]).long().to(dev)
+    else:
+        _, w = sk.pf_step(bank, prm, (1, 2, 3, 4), 5, 16)
+        anc, _, _ = stratified_resample_soa(prng.prng_key(5), w / w.sum())
+    out, ok = gk.windowed_gather(bank, anc)
+    out_p, ok_p = gk.monotone_gather_plain(bank, anc)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p) and torch.equal(out, out_p)
+    if bool(ok.all()):
+        assert torch.equal(out, sk.resample_gather_plain(bank, anc))
+    assert bool(ok.all()) != spread
+
+
 def test_resample_gather_exact(dev):
     rng = np.random.default_rng(4)
     bank, prm = _pf_inputs(dev, 10_000, rng)
@@ -131,3 +202,8 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         sk.resample_gather(torch.zeros(16, 4, device=dev), torch.zeros(4, dtype=torch.int32,
                                                                         device=dev))
+    with pytest.raises(ValueError):
+        fk.decode(torch.zeros(100, dtype=torch.int32, device=dev), torch.zeros(16, 100, device=dev))
+    with pytest.raises(ValueError):
+        gk.windowed_gather(torch.zeros(16, 4096, device=dev),
+                           torch.zeros(4096, dtype=torch.int32, device=dev))

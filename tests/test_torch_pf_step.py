@@ -92,7 +92,7 @@ def test_fused_propagate_weight_matches_pallas(tracking, apply_pred, seed):
         tuple(np.asarray(s["key"]).tolist()), t(s["bank16"]), t(s["cur"]), t(s["pred"]), t(s["predm"]),
         t(s["cmi"]), NoiseBounds(**noise), t(fac_t), t(fac_r), tracking, apply_pred, 1.025,
         Camera.create(**CAM), t(s["markers"]), t(s["marker_mask"]), t(s["det_xy"]),
-        t(s["det_mask"]), 10.0, 5.0, t(s["downgrade"]),
+        t(s["det_mask"]), 10.0, 5.0, t(s["downgrade"]), want_pairs=False,
     )
     want_bank = np.asarray(want_bank)
     np.testing.assert_allclose(got_bank.numpy(), want_bank, rtol=2e-6, atol=2e-7)

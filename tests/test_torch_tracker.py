@@ -62,8 +62,8 @@ def jax_run(golden):
 def port_run(golden):
     d = golden["d"]
     step = make_tracker(golden["cam"], torch.from_numpy(golden["markers"]),
-                        torch.ones(5, dtype=torch.bool), TrackerConfig(**CONFIG))
-    state = TargetState.create(N, prng_key(0))
+                        torch.ones(5, dtype=torch.bool), TrackerConfig(**CONFIG), device="cpu")
+    state = TargetState.create(N, prng_key(0), device="cpu")
     poses, updated = [], []
     for i in range(len(d["frames"])):
         state, res = step(state, torch.from_numpy(d["frames"][i]), float(d["times"][i]))
@@ -100,6 +100,50 @@ def test_trajectory_against_jax(jax_run, port_run):
     assert ang.max() < 0.1, f"max {ang.max():.3f} deg at frame {ang.argmax()}"
 
 
+# name -> (overrides, frames replayed).  The ESS gate first fires on frame
+# 12 at 5k particles and the decode first falls back on frame 16, so the
+# resampling switches replay 17 frames; the others 6 (init + 5 PF frames).
+SWITCHES = {
+    # the slice configuration: XLA propagation + kernel E, sort-free resampling (kernel F)
+    "slice": (dict(use_fused_pf_kernel=False, use_pallas_resample=True), 17),
+    "straight_pf_kernel": (dict(use_folded_pf_kernel=False), 6),
+    "closed_form_resample": (dict(use_closed_form_resample=True), 17),
+    "vmapped_gn": (dict(use_pallas_gn=False), 6),
+    "xla_weight": (dict(use_fused_pf_kernel=False, use_pallas_weight=False), 6),
+}
+
+
+@pytest.mark.parametrize("name", list(SWITCHES))
+def test_switch_replay_against_jax(golden, jax_run, name):
+    """Each single-device switch over the first frames against the JAX
+    tracker.  On the CPU the JAX tracker ignores the Pallas-only switches
+    (`tracker/step.py:191,309,720,770` gate on the backend), so its default
+    run is the reference for them; `use_closed_form_resample` changes the
+    assignment only in CDF ulp pockets (pinned exactly in
+    test_torch_resample.py).  Bars: every frame updated, poses within 1e-4
+    (tests/test_pallas_resample.py's bar between resampler switches) on
+    the translation, 0.1 deg on the rotation (this file's bar)."""
+    d = golden["d"]
+    overrides, n_frames = SWITCHES[name]
+    step = make_tracker(golden["cam"], torch.from_numpy(golden["markers"]),
+                        torch.ones(5, dtype=torch.bool), TrackerConfig(**CONFIG, **overrides),
+                        device="cpu")
+    state = TargetState.create(N, prng_key(0), device="cpu")
+    poses = []
+    for i in range(n_frames):
+        state, res = step(state, torch.from_numpy(d["frames"][i]), float(d["times"][i]))
+        assert bool(res.pose_updated), f"frame {i} not updated"
+        poses.append(res.pose.numpy())
+    got, ref = np.stack(poses), jax_run["poses"][:n_frames]
+    d_t = np.linalg.norm(ref[:, :3, 3] - got[:, :3, 3], axis=-1)
+    rel = np.einsum("tij,tkj->tik", ref[:, :3, :3], got[:, :3, :3])
+    ang = np.degrees(np.arccos(np.clip((np.trace(rel, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    assert d_t.max() < 1e-4, f"max {d_t.max() * 1e3:.4f} mm at frame {d_t.argmax()}"
+    assert ang.max() < 0.1, f"max {ang.max():.3f} deg at frame {ang.argmax()}"
+    if name == "slice":
+        assert step.decoded_frames and step.fallback_frames, "the decode and its fallback both run"
+
+
 def _resampled_frame(states):
     """First mature tracked frame on which the reference resampled."""
     for k in range(3, len(states) - 1):
@@ -119,7 +163,7 @@ def test_one_frame_from_converted_state(golden, jax_run):
     fields = {n: (np.asarray(v) if n != "exposure" else v) for n, v in ref_state._asdict().items()}
     state = convert.state_from_reference(fields)
     step = make_tracker(golden["cam"], torch.from_numpy(golden["markers"]),
-                        torch.ones(5, dtype=torch.bool), TrackerConfig(**CONFIG))
+                        torch.ones(5, dtype=torch.bool), TrackerConfig(**CONFIG), device="cpu")
     got, res = step(state, torch.from_numpy(d["frames"][k]), float(d["times"][k]))
     want = jax_run["states"][k + 1]
 
