@@ -25,7 +25,20 @@ Phases (any failure raises and exits non-zero):
      launched and B not; the frames whose resampling took F's result and
      those that fell back to the sort path; a warm second replay;
   7. switches -- short replays (20 frames, resampling on every tracked
-     frame) of the remaining single-device switches, same bars.
+     frame) of the remaining single-device switches, same bars;
+  8. sharded -- the bank cut over a local particles mesh of 4 shards on the
+     one card (`parallel.make_sharded_tracker`): the main path's replay
+     with kernel B per shard and the ring resampler's kernel H, every block
+     reaching every shard; fail flags equal to the main path's frame by
+     frame, nothing clipped, same bars; a warm second replay; the same with
+     the reference's default ring (reach 1, a window of S / 4), whose
+     clipped draws are reported; then 20 frames at 1,000,000 particles, the
+     size the sharded path exists for (every frame must update);
+  9. group -- a `torch.distributed` group of this one rank over `nccl`
+     carries the sharded step's collectives for a few frames, which must
+     equal the local mesh of one shard bit for bit.
+Phase 3 also holds the ring resampler at P = 1, 2, 4, 8 and kernel B per
+shard against their whole-bank results, bit for bit.
 The last three lines are the card, the kernel table and the device line.
 It imports nothing of JAX.
 """
@@ -37,6 +50,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -49,6 +63,10 @@ SLICE = dict(use_fused_pf_kernel=False, use_pallas_resample=True)
 SWITCHES = (dict(use_folded_pf_kernel=False, use_closed_form_resample=True, use_pallas_gn=False),
             dict(use_fused_pf_kernel=False, use_pallas_weight=False))
 SHORT_FRAMES = 20
+MESH_SHARDS = 4
+# the ring that cannot clip: whole blocks from every other shard
+SHARDED = dict(resample_reach=MESH_SHARDS - 1, payload_window=None)
+N_LARGE = 1_000_000
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM bytes per
 # second and float32 operations per second outside the tensor cores.  The
@@ -96,6 +114,28 @@ def time_ms(fn, reps: int = 20) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_time_ms(fn, reps: int = 20) -> float:
+    """One call's time on the card alone: `reps` calls captured into one CUDA
+    graph and replayed, so the host's time to issue them is left out
+    (`time_ms` includes it, and it is most of a short kernel's time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -222,6 +262,18 @@ def check_kernels(device, d, cam, markers):
                      plain_ms=time_ms(lambda: sk.pf_step_plain(bank, prm_b, keys, 5, 16), 5),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
+    # B per shard: P = 4 passes at lane_offset / n_total concatenate to the whole-bank pass
+    s_len = n // MESH_SHARDS
+    parts = [sk.pf_step(bank[:, i * s_len:(i + 1) * s_len].contiguous(), prm_b, keys, 5, 16,
+                        lane_offset=i * s_len, n_total=n) for i in range(MESH_SHARDS)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([b for b, _ in parts], 1), bank_k), \
+        "pf_step per shard: the concatenated banks differ from the whole-bank pass"
+    assert torch.equal(torch.cat([w for _, w in parts]), w_k), \
+        "pf_step per shard: the concatenated weights differ from the whole-bank pass"
+    print(f"[kernels] pf_step per shard P={MESH_SHARDS} (lane_offset, n_total): bank and weights "
+          f"equal the whole-bank pass bit for bit")
+
     # B, pairs variant (#4): the same pass with each particle's greedy pairs
     got = sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True)
     want = sk.pf_step_plain(bank, prm_b, keys, 5, 16, want_pairs=True)
@@ -285,6 +337,7 @@ def check_kernels(device, d, cam, markers):
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=time_ms(lambda: bank_k.index_select(1, anc))))
     print(f"[kernels] resample_gather N={n}: exact ({n_unique} distinct ancestors)")
+    rows.append(check_ring_gather(device, bank_k, wn, got_c))
 
     # F (#10) and G (#11) on a covered and an uncovered weight profile
     gen = torch.Generator().manual_seed(0)
@@ -372,31 +425,155 @@ def check_kernels(device, d, cam, markers):
     return rows
 
 
-def replay(device, d, cam, markers, overrides=None, n_frames=None):
-    """One replay of the first `n_frames` golden frames with the main path's
-    config plus `overrides`; returns (poses, updated, flags, seconds, tracker)."""
+def check_ring_gather(device, bank_k, wn, want_c):
+    """Kernel H against its plain version, then the ring resampler on a local
+    mesh at P = 1, 2, 4, 8 against the single-device result `want_c` of the
+    same weights `wn`; returns H's table row (timed on the window profile)."""
     import torch
+    from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
+    from pf_monocular_pose_estimator_tpu_torch.parallel.comm import (LocalMesh, shard_lanes,
+                                                                     unshard_lanes)
+    from pf_monocular_pose_estimator_tpu_torch.parallel.resample import make_distributed_resampler
+    from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
+    from pf_monocular_pose_estimator_tpu_torch.utils import prng
+
+    n = bank_k.shape[1]
+    s, w = n // MESH_SHARDS, n // MESH_SHARDS // 4
+    gen = torch.Generator().manual_seed(1)
+    shards = shard_lanes(LocalMesh(MESH_SHARDS), bank_k)  # (4, 16, S)
+    own = shards[1, :12]  # the top of a (16, S) bank: rows strided, uncopied
+    profiles = {
+        "window": [own, shards[2, :12, :w].contiguous(), shards[0, :12, s - w:].contiguous()],
+        "full_blocks": [own] + [torch.randn(12, s, generator=gen).to(device) for _ in range(4)],
+        "identity": [own],
+    }
+    for name, blocks in profiles.items():
+        total = sum(b.shape[1] for b in blocks)
+        if name == "identity":
+            pos = torch.arange(s, dtype=torch.int32, device=device)
+        else:
+            pos = torch.sort(torch.randint(0, total, (s,), generator=gen)).values.to(torch.int32)
+            pos[::97] = pos[s // 2]  # clamped draws break the order
+            pos = pos.to(device)
+            assert int(pos.min()) < s and int(pos.max()) >= total - blocks[-1].shape[1], \
+                f"ring_gather {name}: positions miss a block"
+        got = hk.ring_gather(blocks, pos)
+        want = hk.ring_gather_plain(blocks, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"ring_gather differs from plain ({name})"
+        if name == "identity":
+            assert torch.equal(got[:12], own), "ring_gather identity changed the block"
+        if name == "window":
+            timed = (blocks, pos, torch.cat(blocks, dim=1), pos.long())
+        print(f"[kernels] ring_gather {name} S={s} ({len(blocks)} blocks, {total} lanes): exact")
+    blocks, pos, cat12, pos64 = timed
+    # read the int32 positions and 12 rows, write 16 rows; ~20 integer operations a lane
+    b_ms, b_by = bound(s * (4 + 48 + 64), 20 * s)
+    row = dict(name="ring_gather", route="cuda",
+               source="pf_monocular_pose_estimator_tpu_torch/csrc/ring_gather.cu",
+               replaces=f"{REF}/pf/pallas_step.py:716", max_abs_err=0.0,
+               ms=time_ms(lambda: hk.ring_gather(blocks, pos)),
+               plain_ms=time_ms(lambda: hk.ring_gather_plain(blocks, pos)),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(lambda: cat12.index_select(1, pos64)),
+               device_ms=device_time_ms(lambda: hk.ring_gather(blocks, pos)),
+               library_device_ms=device_time_ms(lambda: cat12.index_select(1, pos64)))
+    print(f"[timing] ring_gather S={s} on the card alone (CUDA graph of 20 launches): "
+          f"{row['device_ms'] * 1e3:.2f} us, index_select {row['library_device_ms'] * 1e3:.2f} us")
+
+    # the ring resampler across widths against the single-device sort path + kernel C
+    key = prng.prng_key(3)
+    _, counts, most = stratified_resample_soa(key, wn)
+    for p in (1, 2, 4, 8):
+        mesh = LocalMesh(p)
+        resample = make_distributed_resampler(mesh, n)
+        before = hk.ring_gather.launches
+        out = resample(key, shard_lanes(mesh, wn), shard_lanes(mesh, bank_k))
+        torch.cuda.synchronize()
+        assert hk.ring_gather.launches == before + p, "the resampler did not launch kernel H"
+        assert torch.equal(unshard_lanes(mesh, out.resampled), want_c), \
+            f"sharded resampler P={p}: resampled differs from the single-device path"
+        assert torch.equal(unshard_lanes(mesh, out.counts).long(), counts.long()), \
+            f"sharded resampler P={p}: counts differ"
+        assert int(out.most) == int(most), f"sharded resampler P={p}: most differs"
+        assert int(out.clipped) == 0, f"sharded resampler P={p}: {int(out.clipped)} draws clipped"
+        if p == MESH_SHARDS:
+            w_sh, b_sh = shard_lanes(mesh, wn), shard_lanes(mesh, bank_k)
+            print(f"[timing] ring resampler N={n} P={p}, all of it: "
+                  f"{time_ms(lambda: resample(key, w_sh, b_sh), 5) * 1e3:.1f} us")
+    print(f"[kernels] sharded resampler N={n}: P = 1, 2, 4, 8 equal stratified_resample_soa + "
+          f"resample_gather bit for bit (resampled, counts, most), clipped 0")
+    return row
+
+
+def replay(device, d, cam, markers, overrides=None, n_frames=None, n_particles=N_PARTICLES,
+           mesh=None, **sharded):
+    """One replay of the first `n_frames` golden frames with the main path's
+    config plus `overrides`; with `mesh`, the bank cut over that particles
+    mesh and `sharded` passed to `make_sharded_tracker`.  Returns the poses,
+    the per-frame updated / fail flag / cumulative clipped draws, the
+    seconds, the tracker and the last state."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.parallel import (make_sharded_tracker,
+                                                                shard_target_state)
     from pf_monocular_pose_estimator_tpu_torch.tracker import TargetState, make_tracker
     from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
     from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
 
-    config = TrackerConfig(**MAIN, **(overrides or {}))
-    step = make_tracker(cam, markers, torch.ones(markers.shape[0], dtype=torch.bool), config,
-                        device=device)
+    config = TrackerConfig(**dict(MAIN, n_particles=n_particles), **(overrides or {}))
+    mask = torch.ones(markers.shape[0], dtype=torch.bool)
+    state = TargetState.create(n_particles, prng_key(0), device=device)
+    if mesh is None:
+        step = make_tracker(cam, markers, mask, config, device=device)
+    else:
+        step = make_sharded_tracker(cam, markers, mask, config, mesh, device=device, **sharded)
+        state = shard_target_state(state, mesh)
     frames = torch.from_numpy(d["frames"][:n_frames]).to(device)
-    state = TargetState.create(N_PARTICLES, prng_key(0), device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    poses, upd, flags = [], [], []
+    results = []
     for i in range(frames.shape[0]):
         state, res = step(state, frames[i], float(d["times"][i]))
-        poses.append(res.pose)
-        upd.append(res.pose_updated)
-        flags.append(res.fail_flag)
+        results.append(res)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    poses = torch.stack(poses).cpu().numpy()
-    return poses, torch.stack(upd).cpu().numpy(), torch.stack(flags).cpu().numpy(), seconds, step
+    stack = lambda name: torch.stack([getattr(r, name) for r in results]).cpu().numpy()
+    return SimpleNamespace(poses=stack("pose"), updated=stack("pose_updated"),
+                           flags=stack("fail_flag"), clipped=stack("resample_clipped"),
+                           seconds=seconds, step=step, state=state, n_particles=n_particles,
+                           syncs_per_frame=step.host.count / step.frames,
+                           frames_per_second=frames.shape[0] / seconds)
+
+
+def one_rank_group(device, d, cam, markers):
+    """Phase 9: a `torch.distributed` group of this one rank over `nccl`
+    (file rendezvous, no network) carries the sharded step's collectives; a
+    few frames that resample on every tracked frame must equal the local
+    mesh of one shard bit for bit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from pf_monocular_pose_estimator_tpu_torch.parallel import DistMesh, LocalMesh, distributed
+
+    args = dict(overrides=dict(resample_min_ess=0.0), n_frames=6)
+    local = replay(device, d, cam, markers, mesh=LocalMesh(1), **args)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            mesh = distributed.make_pod_mesh()
+            assert isinstance(mesh, DistMesh) and mesh.size == 1
+            group = replay(device, d, cam, markers, mesh=mesh, **args)
+        finally:
+            dist.destroy_process_group()
+    assert group.updated.all() and np.array_equal(group.flags, local.flags)
+    assert np.array_equal(group.poses, local.poses), "one-rank nccl group: poses differ"
+    assert torch.equal(group.state.bank, local.state.bank), "one-rank nccl group: banks differ"
+    assert int(group.clipped[-1]) == 0
+    print(f"[group] one rank over nccl {'.'.join(map(str, torch.cuda.nccl.version()))}: 6 frames "
+          f"at {N_PARTICLES} particles equal the local mesh of one shard bit for bit (poses, "
+          f"flags, bank), {group.frames_per_second:.2f} frames/s")
 
 
 def accuracy(est, gt):
@@ -415,6 +592,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import pf_monocular_pose_estimator_tpu_torch  # noqa: F401  (sets TF32 off)
     from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
+    from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
+    from pf_monocular_pose_estimator_tpu_torch.parallel import make_mesh
     from pf_monocular_pose_estimator_tpu_torch.pf import gather_kernel as gk
     from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel as rk
     from pf_monocular_pose_estimator_tpu_torch.pf import resample_kernel as fk
@@ -444,89 +623,135 @@ def main() -> int:
                 "resample_gather": (sk.resample_gather, "launches"),
                 "resample_decode": (fk.decode, "launches"),
                 "monotone_gather": (gk.windowed_gather, "launches"),
+                "ring_gather": (hk.ring_gather, "launches"),
                 "gn_refine": (rk.gn_refine, "launches")}
 
-    def zero_counts():
+    def counted_replay(tag, *args, bars=True, **kwargs):
+        """A replay with every launch count set to 0 just before it and read
+        just after; every frame must update and, with `bars`, the golden
+        sequence's accuracy bars hold."""
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
+        run = replay(device, d, cam, markers, *args, **kwargs)
+        run.launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        n_frames = run.poses.shape[0]
+        run.ate, run.ori = accuracy(run.poses, d["poses"][:n_frames])
+        print(f"[{tag}] launches in the replay: {run.launches}")
+        print(f"[{tag}] {run.n_particles} particles, {n_frames} frames: updated "
+              f"{int(run.updated.sum())}/{n_frames}, ATE {run.ate * 1e3:.3f} mm, orientation "
+              f"{run.ori:.3f} deg, flags {sorted(set(run.flags.tolist()))}, first pass "
+              f"{run.seconds:.2f} s")
+        missed = np.flatnonzero(~run.updated).tolist()
+        assert not missed, f"{tag}: untracked frames: {missed}"
+        if bars:
+            assert run.ate < 0.01, f"{tag}: ATE {run.ate * 1e3:.2f} mm"
+            assert run.ori < 1.5, f"{tag}: orientation error {run.ori:.2f} deg"
+        return run
 
-    def read_counts():
-        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    def warm_replay(tag, *args, **kwargs):
+        """A second replay of a path just driven: frames per second, syncs per frame."""
+        run = replay(device, d, cam, markers, *args, **kwargs)
+        assert run.updated.all()
+        print(f"[{tag}] {card}: warm replay {run.frames_per_second:.2f} frames/s at "
+              f"{run.n_particles} particles ({1e3 / run.frames_per_second:.2f} ms/frame), "
+              f"{run.syncs_per_frame:.2f} device->host syncs per frame")
+        return run
 
-    def check_replay(tag, est, upd, flags, seconds, n_frames):
-        ate, ori = accuracy(est, d["poses"][:n_frames])
-        print(f"[{tag}] {N_PARTICLES} particles, {n_frames} frames: updated {int(upd.sum())}/"
-              f"{n_frames}, ATE {ate * 1e3:.3f} mm, orientation {ori:.3f} deg, flags "
-              f"{sorted(set(flags.tolist()))}, first pass {seconds:.2f} s")
-        assert upd.all(), f"{tag}: untracked frames: {np.flatnonzero(~upd).tolist()}"
-        assert ate < 0.01, f"{tag}: ATE {ate * 1e3:.2f} mm"
-        assert ori < 1.5, f"{tag}: orientation error {ori:.2f} deg"
-        return ate, ori
-
-    # 4. replay through the main path, counters from zero
-    zero_counts()
-    est, upd, flags, cold_s, step = replay(device, d, cam, markers)
-    launches = read_counts()
-    print(f"[replay] launches in the replay: {launches}")
-    ate, ori = check_replay("replay", est, upd, flags, cold_s, 60)
+    # 4. replay through the main path, counters from zero; 5. a warm second replay
+    main_run = counted_replay("replay")
     for name in ("threshold_blur", "detect_stats", "pf_step", "gn_refine"):
-        assert launches[name] > 0, f"the replay never launched {name}"
-    if launches["resample_gather"] == 0:
+        assert main_run.launches[name] > 0, f"the replay never launched {name}"
+    if main_run.launches["resample_gather"] == 0:
         print("[replay] no frame resampled (the ESS gate never fired)")
-
-    # 5. timing: a warm second replay
-    _, upd2, _, warm_s, step2 = replay(device, d, cam, markers)
-    assert upd2.all()
-    fps = 60.0 / warm_s
-    syncs = step2.host.count / step2.frames
-    print(f"[timing] {card}: warm replay {fps:.2f} frames/s at {N_PARTICLES} particles "
-          f"({warm_s * 1e3 / 60:.2f} ms/frame), {syncs:.2f} device->host syncs per frame")
+    main_warm = warm_replay("timing")
 
     # 6. the slice: XLA-style propagation + kernel E, sort-free resampling (kernel F)
-    zero_counts()
-    est_s, upd_s, flags_s, cold_s, step_s = replay(device, d, cam, markers, SLICE)
-    slice_launches = read_counts()
-    print(f"[slice] launches in the replay: {slice_launches}")
-    ate_s, ori_s = check_replay("slice", est_s, upd_s, flags_s, cold_s, 60)
-    print(f"[slice] resampling took kernel F's result on frames {step_s.decoded_frames}; "
-          f"fell back to the sort path (kernel C) on frames {step_s.fallback_frames}")
-    assert slice_launches["pf_weight"] > 0, "the slice never launched pf_weight"
-    assert slice_launches["resample_decode"] > 0, "the slice never launched resample_decode"
-    for name in ("threshold_blur", "detect_stats", "gn_refine"):
-        assert slice_launches[name] > 0, f"the slice never launched {name}"
-    assert slice_launches["pf_step"] == 0, "the slice launched pf_step"
-    _, upd_s2, _, warm_s, step_s2 = replay(device, d, cam, markers, SLICE)
-    assert upd_s2.all()
-    fps_s = 60.0 / warm_s
-    syncs_s = step_s2.host.count / step_s2.frames
-    print(f"[slice] {card}: warm replay {fps_s:.2f} frames/s at {N_PARTICLES} particles "
-          f"({warm_s * 1e3 / 60:.2f} ms/frame), {syncs_s:.2f} device->host syncs per frame")
+    slice_run = counted_replay("slice", SLICE)
+    print(f"[slice] resampling took kernel F's result on frames {slice_run.step.decoded_frames}; "
+          f"fell back to the sort path (kernel C) on frames {slice_run.step.fallback_frames}")
+    for name in ("pf_weight", "resample_decode", "threshold_blur", "detect_stats", "gn_refine"):
+        assert slice_run.launches[name] > 0, f"the slice never launched {name}"
+    assert slice_run.launches["pf_step"] == 0, "the slice launched pf_step"
+    slice_warm = warm_replay("slice", SLICE)
 
     # 7. the remaining switches: short replays, resampling on every tracked frame
     for overrides in SWITCHES:
-        zero_counts()
-        est_w, upd_w, flags_w, cold_w, _ = replay(device, d, cam, markers,
-                                                  dict(overrides, resample_min_ess=0.0),
-                                                  SHORT_FRAMES)
-        print(f"[switches] {overrides}: launches {read_counts()}")
-        check_replay("switches", est_w, upd_w, flags_w, cold_w, SHORT_FRAMES)
+        print(f"[switches] {overrides}:")
+        counted_replay("switches", dict(overrides, resample_min_ess=0.0), SHORT_FRAMES)
+
+    # 8. the sharded path: a local mesh of 4 shards on the one card.  Every
+    # block reaches every shard (SHARDED), so no draw can be clipped and the
+    # resampling is the main path's slot for slot.
+    mesh = make_mesh(MESH_SHARDS)
+    sharded_run = counted_replay("sharded", mesh=mesh, **SHARDED)
+    print(f"[sharded] P={MESH_SHARDS}: ATE {sharded_run.ate * 1e3:.3f} mm, orientation "
+          f"{sharded_run.ori:.3f} deg; main path: ATE {main_run.ate * 1e3:.3f} mm, orientation "
+          f"{main_run.ori:.3f} deg")
+    differ = np.flatnonzero(sharded_run.flags != main_run.flags).tolist()
+    assert not differ, f"sharded: fail flags differ from the main path's on frames {differ}"
+    assert int(sharded_run.clipped[-1]) == 0, f"sharded: {sharded_run.clipped[-1]} draws clipped"
+    assert sharded_run.state.bank.shape == (MESH_SHARDS, 16, N_PARTICLES // MESH_SHARDS)
+    # one launch of B per shard and PF pass (at least one pass a tracked frame), one
+    # of H per shard and resampling frame
+    got = sharded_run.launches
+    assert got["pf_step"] % MESH_SHARDS == 0 and got["pf_step"] >= MESH_SHARDS * 59, \
+        "sharded: kernel B launches"
+    assert got["ring_gather"] % MESH_SHARDS == 0 and got["ring_gather"] > 0, \
+        "sharded: kernel H launches"
+    assert got["resample_gather"] == 0, "sharded: launched the unsharded gather"
+    for name in ("threshold_blur", "detect_stats", "gn_refine"):
+        assert got[name] > 0, f"the sharded replay never launched {name}"
+    print(f"[sharded] pf_step {got['pf_step']} launches (main path "
+          f"{main_run.launches['pf_step']} x {MESH_SHARDS} shards), ring_gather "
+          f"{got['ring_gather']} (main path's resample_gather "
+          f"{main_run.launches['resample_gather']} x {MESH_SHARDS})")
+    sharded_warm = warm_replay("sharded", mesh=mesh, **SHARDED)
+
+    # the reference's default ring (reach 1, a window of S / 4): what it clips here
+    default_run = counted_replay("sharded-default-ring", mesh=mesh)
+    first = np.flatnonzero(default_run.clipped > 0)
+    print(f"[sharded-default-ring] reach 1, window S/4: {int(default_run.clipped[-1])} draws "
+          f"clipped over the replay, the first on frame "
+          f"{int(first[0]) if first.size else None}; ring_gather "
+          f"{default_run.launches['ring_gather']} launches")
+
+    # the size the sharded path exists for; the only bar: every frame updated
+    large_run = counted_replay("sharded-large", n_frames=SHORT_FRAMES, n_particles=N_LARGE,
+                               mesh=mesh, bars=False, **SHARDED)
+    print(f"[sharded-large] {int(large_run.clipped[-1])} draws clipped")
+    large_warm = warm_replay("sharded-large", n_frames=SHORT_FRAMES, n_particles=N_LARGE,
+                             mesh=mesh, **SHARDED)
+
+    # 9. the same step over a torch.distributed group of this one rank
+    one_rank_group(device, d, cam, markers)
 
     for r in rows:
         # each kernel's launches on the path it lies on: A-D on the main path, E
-        # and F on the slice; B's pairs variant and G lie on no tracker path
-        r["launches"] = (slice_launches if r["name"] in ("pf_weight", "resample_decode")
-                         else launches)[r["name"]]
+        # and F on the slice, H on the sharded replay; B's pairs variant and G
+        # lie on no tracker path
+        on = {"pf_weight": slice_run, "resample_decode": slice_run,
+              "ring_gather": sharded_run}.get(r["name"], main_run)
+        r["launches"] = on.launches[r["name"]]
         lib = "" if r["library_ms"] is None else f", library call {r['library_ms'] * 1e3:.1f} us"
         print(f"[timing] {card}: {r['name']} kernel {r['ms'] * 1e3:.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), plain {r['plain_ms'] * 1e3:.1f} us"
               f"{lib}")
-    print(json.dumps({"replay": {"card": card, "frames_per_second": fps,
-                                 "syncs_per_frame": syncs, "ate_mm": ate * 1e3,
-                                 "orientation_deg": ori},
-                      "slice": {"frames_per_second": fps_s, "syncs_per_frame": syncs_s,
-                                "ate_mm": ate_s * 1e3, "orientation_deg": ori_s,
-                                "decoded_frames": step_s.decoded_frames,
-                                "fallback_frames": step_s.fallback_frames}}))
+
+    def summary(cold, warm):
+        return {"frames_per_second": warm.frames_per_second,
+                "syncs_per_frame": warm.syncs_per_frame, "ate_mm": cold.ate * 1e3,
+                "orientation_deg": cold.ori}
+
+    print(json.dumps({
+        "replay": dict(summary(main_run, main_warm), card=card),
+        "slice": dict(summary(slice_run, slice_warm), decoded_frames=slice_run.step.decoded_frames,
+                      fallback_frames=slice_run.step.fallback_frames),
+        "sharded": dict(summary(sharded_run, sharded_warm), shards=MESH_SHARDS,
+                        pf_step_launches=got["pf_step"], ring_gather_launches=got["ring_gather"],
+                        clipped=int(sharded_run.clipped[-1]),
+                        default_ring_clipped=int(default_run.clipped[-1])),
+        "sharded_large": dict(summary(large_run, large_warm), n_particles=N_LARGE,
+                              frames=SHORT_FRAMES, clipped=int(large_run.clipped[-1]))}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

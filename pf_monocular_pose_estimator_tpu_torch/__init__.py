@@ -16,6 +16,11 @@ to find):
              `gather_kernel` csrc/monotone_gather.cu, `refine_kernel`
              csrc/gn_refine.cu
   tracker/   per-frame state machine (init branch + PF track branch)
+  parallel/  the bank sharded over a particles mesh: `comm` (a local mesh
+             of P shards on one device, or one shard per
+             `torch.distributed` rank), the ring resampler, kernel B per
+             shard, the sharded tracker; `gather_kernel` wraps
+             csrc/ring_gather.cu
   utils/     config, fail flags, dynamic params, threefry PRNG, state
              converters, the kernel library build
   csrc/      CUDA C++ sources, built at first use into build/torch_kernels/

@@ -78,15 +78,19 @@ def noisy_rows(base, rn, dts) -> list:
 
 def propagate_soa(key, resampled16: torch.Tensor, current_pose, predicted_pose, prediction_matrix,
                   cam_move_inv, noise, fac_trans, fac_rot, tracking: bool,
-                  apply_prediction: bool, inflation) -> torch.Tensor:
+                  apply_prediction: bool, inflation, lane_offset: int = 0,
+                  n_total: int | None = None) -> torch.Tensor:
     """The reference's XLA `propagate_soa` (its tracker's propagation when
     `use_fused_pf_kernel` is off): base = L @ (T @ R) when tracking with
     the prediction, L @ T when tracking without it, T itself otherwise;
     `jax.random.uniform(k, (3, N), lo, hi)` draws for the angles (k_rot)
     and translations (k_trans); Rz @ Ry @ Rx noise; lanes 0 / 1 set to the
-    current and predicted poses."""
+    current and predicted poses.  A shard of a bank of `n_total` lanes
+    passes the global index of its first lane as `lane_offset` and takes its
+    slice of the whole bank's draws and pins."""
     dev = resampled16.device
     n = resampled16.shape[1]
+    n_total = n if n_total is None else n_total
     f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
     k_rot, k_trans = prng.split(key)
     if tracking and apply_prediction:
@@ -102,13 +106,18 @@ def propagate_soa(key, resampled16: torch.Tensor, current_pose, predicted_pose, 
     hi_a = f(noise.max_angular) * three * f(fac_rot) * infl
     lo_t = f(noise.min_translation) * three * f(fac_trans) * infl
     hi_t = f(noise.max_translation) * three * f(fac_trans) * infl
-    angles = prng.uniform(k_rot, (3, n), dev, lo_a[:, None], hi_a[:, None])
-    dts = prng.uniform(k_trans, (3, n), dev, lo_t[:, None], hi_t[:, None])
+    glane = torch.arange(n, device=dev) + lane_offset
+    counters = torch.arange(3, device=dev)[:, None] * n_total + glane[None, :]
+
+    def draw(key, lo, hi):  # rows of jax.random.uniform(key, (3, n_total), lo, hi)
+        return torch.maximum(lo, prng.uniform_at(key, counters) * (hi - lo) + lo)
+
+    angles = draw(k_rot, lo_a[:, None], hi_a[:, None])
+    dts = draw(k_trans, lo_t[:, None], hi_t[:, None])
     rows = noisy_rows(base, rotation_entries(angles[0], angles[1], angles[2]), dts)
     bank16 = torch.stack(rows)
-    bank16[:, 0] = f(current_pose).reshape(16)
-    bank16[:, 1] = f(predicted_pose).reshape(16)
-    return bank16
+    pins = (f(current_pose).reshape(16, 1), f(predicted_pose).reshape(16, 1))
+    return torch.where(glane == 0, pins[0], torch.where(glane == 1, pins[1], bank16))
 
 
 def weight_particles_soa(camera, bank16: torch.Tensor, markers_h: torch.Tensor,

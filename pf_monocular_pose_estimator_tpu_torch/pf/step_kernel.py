@@ -122,16 +122,13 @@ pf_step.launches = 0  # weights only (the tracker's kernel B)
 pf_step.pairs_launches = 0  # with pairs (the straight variant's output, #4)
 
 
-def fused_propagate_weight(key, resampled16, current_pose, predicted_pose, prediction_matrix,
-                           cam_move_inv, noise, fac_trans, fac_rot, tracking: bool,
-                           apply_prediction: bool, inflation: float, camera, markers_h,
-                           marker_mask, det_xy, det_mask, tol_pf, tol_init, downgrade,
-                           num_markers_score=None, want_pairs: bool = True):
-    """Counterpart of the reference's `fused_propagate_weight_pallas` (either
-    variant: `folded` has no counterpart on the card) -> (bank16, weights,
-    pairs (M, 2, N), n_corr (N,)), or (bank16, weights) with
-    want_pairs=False."""
-    dev = resampled16.device
+def step_params(key, current_pose, predicted_pose, prediction_matrix, cam_move_inv, noise,
+                fac_trans, fac_rot, tracking: bool, apply_prediction: bool, inflation: float,
+                camera, markers_h, marker_mask, det_xy, det_mask, tol_pf, tol_init, downgrade,
+                num_markers_score=None):
+    """One PF pass's arguments as kernel B takes them -> (prm, keys4).  They
+    do not depend on the lanes, so a sharded pass builds them once."""
+    dev = det_xy.device
     f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
     k_rot, k_trans = prng.split(key)
     eye = torch.eye(4, dtype=torch.float32, device=dev)
@@ -150,8 +147,27 @@ def fused_propagate_weight(key, resampled16, current_pose, predicted_pose, predi
                         f(tol_init), f(num_markers_score), zero])
     prm = pack_params(left, right, current_pose, predicted_pose, lo, hi, scal, markers_h,
                       marker_mask, det_xy, det_mask, downgrade)
-    return pf_step(resampled16.contiguous(), prm, (*k_rot, *k_trans), markers_h.shape[0],
-                   det_xy.shape[0], want_pairs=want_pairs)
+    return prm, (*k_rot, *k_trans)
+
+
+def fused_propagate_weight(key, resampled16, current_pose, predicted_pose, prediction_matrix,
+                           cam_move_inv, noise, fac_trans, fac_rot, tracking: bool,
+                           apply_prediction: bool, inflation: float, camera, markers_h,
+                           marker_mask, det_xy, det_mask, tol_pf, tol_init, downgrade,
+                           num_markers_score=None, want_pairs: bool = True,
+                           lane_offset: int = 0, n_total: int | None = None):
+    """Counterpart of the reference's `fused_propagate_weight_pallas` (either
+    variant: `folded` has no counterpart on the card) -> (bank16, weights,
+    pairs (M, 2, N), n_corr (N,)), or (bank16, weights) with
+    want_pairs=False.  A shard of a bank of `n_total` lanes passes the
+    global index of its first lane as `lane_offset`: draws and the lane 0 / 1
+    pins go by global lane."""
+    prm, keys4 = step_params(key, current_pose, predicted_pose, prediction_matrix, cam_move_inv,
+                             noise, fac_trans, fac_rot, tracking, apply_prediction, inflation,
+                             camera, markers_h, marker_mask, det_xy, det_mask, tol_pf, tol_init,
+                             downgrade, num_markers_score)
+    return pf_step(resampled16.contiguous(), prm, keys4, markers_h.shape[0], det_xy.shape[0],
+                   lane_offset, n_total, want_pairs)
 
 
 def resample_gather_plain(bank16: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:

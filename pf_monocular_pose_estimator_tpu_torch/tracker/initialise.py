@@ -33,17 +33,19 @@ def first_true(x: torch.Tensor) -> torch.Tensor:
     return torch.argmax(x.to(torch.int32))
 
 
-def fill_bank_with_seeds(bank16: torch.Tensor, seeds: torch.Tensor,
-                         seed_mask: torch.Tensor) -> torch.Tensor:
+def fill_bank_with_seeds(bank16: torch.Tensor, seeds: torch.Tensor, seed_mask: torch.Tensor,
+                         lane_offset: int = 0, n_total: int | None = None) -> torch.Tensor:
     """Fill bank slots 1..N-1 by cycling the valid seeds (slot 0 keeps its
-    pose); seeds (S, 4, 4), seed_mask (S,)."""
-    n = bank16.shape[1]
+    pose); seeds (S, 4, 4), seed_mask (S,).  A shard of a bank of `n_total`
+    lanes passes the global index of its first lane as `lane_offset`."""
+    n_local = bank16.shape[1]
+    n = n_local if n_total is None else n_total
     dev = bank16.device
     order = argsort_stable((~seed_mask).to(torch.int32))  # valid first
     seeds16 = seeds[order].reshape(-1, 16).T  # (16, S)
     seeds16 = torch.where(seed_mask[order][None, :], seeds16, torch.zeros((), device=dev))
     n_seeds = torch.sum(seed_mask.to(torch.int64))
-    idx = torch.arange(n, device=dev)
+    idx = torch.arange(n_local, device=dev) + lane_offset
     pick_idx = torch.where(n_seeds > 0, (n - 1 - idx) % torch.clamp(n_seeds, min=1),
                            torch.zeros((), dtype=torch.int64, device=dev))
     pick = seeds16[:, pick_idx]
@@ -63,9 +65,12 @@ def harvest_seeds(results, cand_valid, first, s_cap: int):
 
 def initialise(camera: Camera, det: Detections, markers_h: torch.Tensor,
                marker_mask: torch.Tensor, bank: torch.Tensor, config: TrackerConfig,
-               dyn: DynamicParams, prefer_near: torch.Tensor | None = None) -> InitResult:
+               dyn: DynamicParams, prefer_near: torch.Tensor | None = None,
+               fill_seeds=fill_bank_with_seeds) -> InitResult:
     """Histogram -> ranked hypotheses (+ drop-one variants) -> validation ->
-    seed harvest.  prefer_near: (13,) [t (3), active, R row-major (9)]."""
+    seed harvest.  prefer_near: (13,) [t (3), active, R row-major (9)].
+    `fill_seeds(bank, seeds, seed_mask)` writes the seeds into the bank in
+    the layout the caller keeps it in."""
     dev = det.xy.device
     m_cap = markers_h.shape[0]
     n_markers = torch.sum(marker_mask.to(torch.int32))
@@ -110,7 +115,7 @@ def initialise(camera: Camera, det: Detections, markers_h: torch.Tensor,
     det_for_marker = cand_dfm[first]
 
     seeds, seed_mask = harvest_seeds(results, cand_valid, first, config.max_p3p_seeds)
-    new_bank = torch.where(any_success, fill_bank_with_seeds(bank, seeds, seed_mask), bank)
+    new_bank = torch.where(any_success, fill_seeds(bank, seeds, seed_mask), bank)
 
     flag = torch.where(
         ~enough_dets,

@@ -71,8 +71,9 @@ def _votes_keeping(camera, det, markers_h, marker_mask, given_pairs, kept, beari
 
 def short_p3p(camera: Camera, det: Detections, markers_h: torch.Tensor,
               marker_mask: torch.Tensor, given_pairs: torch.Tensor, bank: torch.Tensor,
-              config: TrackerConfig, dyn: DynamicParams) -> ShortP3PResult:
-    """given_pairs: (3, 2) (marker, detection)."""
+              config: TrackerConfig, dyn: DynamicParams,
+              fill_seeds=fill_bank_with_seeds) -> ShortP3PResult:
+    """given_pairs: (3, 2) (marker, detection); `fill_seeds` as in `initialise`."""
     dev = det.xy.device
     enough = det.count >= config.min_num_leds_detected
     bearings = bearing_vectors(camera, det.xy)
@@ -92,7 +93,7 @@ def short_p3p(camera: Camera, det: Detections, markers_h: torch.Tensor,
     any_success = torch.any(cand_success)
     first = first_true(cand_success)
     seeds, seed_mask = harvest_seeds(results, cands.valid, first, config.max_p3p_seeds)
-    new_bank = torch.where(any_success, fill_bank_with_seeds(bank, seeds, seed_mask), bank)
+    new_bank = torch.where(any_success, fill_seeds(bank, seeds, seed_mask), bank)
     flag = torch.where(
         ~enough,
         int(FailFlag.SHORT_TOO_FEW_DETECTIONS),

@@ -18,6 +18,13 @@ single-device PF, resample and Gauss-Newton switch of `TrackerConfig`.
 Options that are not ported raise NotImplementedError
 (`utils.config.check_ported`).  With `use_pallas_resample` a frame that
 resamples reads the decode's coverage flag on the host (one more sync).
+
+The reference's two SPMD hooks are here too: `pf_fn` takes the place of
+the propagate + weight pass and `resample_fn` that of the resampler, and a
+tracker built with a particles mesh (`parallel.mesh.make_sharded_tracker`)
+keeps its bank in the mesh's sharded layout.  Whatever a frame asks of the
+whole bank goes through `self.bank` (`tracker.bank`), whose values are the
+same on every rank of the mesh, so every rank takes the same host branches.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ from ..pf.refine import gauss_newton_refine
 from ..pf.refine_kernel import gauss_newton_refine_batched
 from ..pf.resample_kernel import resample_bank
 from ..pf.soa import (
-    pick_lane,
     propagate_soa,
     stratified_resample_closed,
     stratified_resample_soa,
@@ -48,6 +54,7 @@ from ..utils.config import TrackerConfig, check_ported
 from ..utils.dynamic import DynamicParams
 from ..utils.flags import FailFlag
 from ..utils.sync import HostReads
+from .bank import WholeBank
 from .initialise import InitResult, argsort_stable, initialise
 from .short_p3p import short_p3p
 from .state import FrameResult, TargetState
@@ -65,13 +72,27 @@ class Tracker:
     frames stepped, so `host.count / frames` is the syncs per frame.  With
     `use_pallas_resample`, `decoded_frames` and `fallback_frames` list the
     frames whose resampling took the decode's result and the sort path's.
-    The tracker runs on the card unless `device` says otherwise."""
+    The tracker runs on the card unless `device` says otherwise.
+
+    `pf_fn` (the reference's hook: one propagate + weight pass, called with
+    the arguments of `fused_propagate_weight` less the camera) and
+    `resample_fn(key, weights, bank) -> parallel.resample.DistResampleOut`
+    replace the single-device passes; `mesh` is the particles mesh whose
+    sharded layout the state's bank then has."""
 
     def __init__(self, camera: Camera, markers_h, marker_mask, config: TrackerConfig,
-                 device="cuda"):
+                 device="cuda", pf_fn=None, resample_fn=None, mesh=None):
         check_ported(config)
         self.config = config
         self.device = torch.device(device)
+        self.pf_fn = pf_fn
+        self.resample_fn = resample_fn
+        if mesh is None:
+            self.bank = WholeBank()
+        else:
+            from ..parallel.bank import ShardedBank
+
+            self.bank = ShardedBank(mesh)
         self.camera = camera.to(self.device)
         self.markers_h = torch.as_tensor(markers_h, dtype=torch.float32).to(self.device)
         mask = torch.as_tensor(marker_mask).to(torch.bool)
@@ -196,7 +217,7 @@ class Tracker:
             prefer = torch.cat([prev_t, self._t([float(gate_active)]),
                                 state.current_pose[:3, :3].reshape(9)])
             init_res = initialise(self.camera, det, self.markers_h, self.marker_mask, state.bank,
-                                  c, dyn, prefer_near=prefer)
+                                  c, dyn, prefer_near=prefer, fill_seeds=self.bank.fill_seeds)
         else:
             init_res = InitResult(
                 success=self._t(False, torch.bool),
@@ -264,8 +285,8 @@ class Tracker:
         predicted = cam_move_inv @ (state.current_pose @ prediction)
 
         # ROI from predicted particle pixels
-        s_cap = min(c.roi_particle_subsample, state.resampled.shape[1])
-        sub = cam_move_inv @ unpack(state.resampled[:, :s_cap]) @ prediction
+        s_cap = min(c.roi_particle_subsample, self.bank.n_lanes(state.weights))
+        sub = cam_move_inv @ unpack(self.bank.head(state.resampled, s_cap)) @ prediction
         pix = torch.cat([project(self.camera, sub, self.markers_h).reshape(-1, 2),
                          project(self.camera, predicted, self.markers_h)])
         pix_mask = torch.cat([self.marker_mask[None, :].expand(s_cap, -1).reshape(-1),
@@ -303,6 +324,10 @@ class Tracker:
             weigh = (self.markers_h, self.marker_mask, det.xy, det.mask,
                      dyn.back_projection_pixel_tolerance_pf, dyn.back_projection_pixel_tolerance,
                      self.downgrade, float(m_f))
+            if self.pf_fn is not None:
+                return self.pf_fn(k, resampled16, state.current_pose, predicted, prediction,
+                                  cam_move_inv, noise, fac_t, fac_r, tracking, apply_pred,
+                                  inflation, *weigh)
             if c.use_fused_pf_kernel:
                 return fused_propagate_weight(
                     k, resampled16, state.current_pose, predicted, prediction, cam_move_inv,
@@ -318,33 +343,32 @@ class Tracker:
         state = state.replace(key=torch.tensor(key, dtype=torch.int64))
         k_rest, k0 = prng.split(k_loop)
         bank16, best_w = pf_compute(0, k0)
-        highest = self.host(torch.max(best_w))
+        highest = self.host(self.bank.max(best_w))
         pf_it = 1
         while pf_it < c.pf_max_retries and highest < exit_gate:
             k_rest, k = prng.split(k_rest)
             bank_i, w_i = pf_compute(pf_it, k)
-            new_high = self.host(torch.max(w_i))
+            new_high = self.host(self.bank.max(w_i))
             if new_high > highest:
                 bank16, best_w = bank_i, w_i
             highest = max(highest, new_high)
             pf_it += 1
-        highest_t = torch.max(best_w)
+        highest_t = self.bank.max(best_w)
 
         if c.motion_prior_radius > 0.0:
-            d = torch.linalg.norm(bank16[[3, 7, 11]] - predicted[:3, 3][:, None], dim=0)
+            d = torch.linalg.norm(bank16[..., [3, 7, 11], :] - predicted[:3, 3][:, None], dim=-2)
             excess = torch.clamp(d - c.motion_prior_radius, min=0.0) / self._t(
                 c.motion_prior_falloff)
             prior = torch.exp(-0.5 * excess * excess)
             small_step = torch.linalg.norm(prediction[:3, 3]) < c.motion_prior_radius
             if tracking:
                 best_w = torch.where(small_step, best_w * prior, best_w)
-            highest_t = torch.max(best_w)
+            highest_t = self.bank.max(best_w)
 
-        w_sum = torch.sum(best_w)
-        w_sum2 = torch.sum(best_w * best_w)
+        w_sum, w_sum2 = self.bank.moments(best_w)
         weights_norm = torch.where(w_sum > 0, best_w / torch.clamp(w_sum, min=1e-12), best_w)
-        best_idx = torch.argmax(best_w)
-        n_f = self._t(float(best_w.shape[0]))
+        best_idx = self.bank.argmax(best_w)
+        n_f = self._t(float(self.bank.n_lanes(best_w)))
         ess_frac = (w_sum * w_sum) / (torch.clamp(w_sum2, min=1e-30) * n_f)
         w_sum_h, highest, ess_h = self.host(torch.stack([w_sum, highest_t, ess_frac]))
         accepted = w_sum_h > 0 and highest > accept_gate
@@ -358,7 +382,7 @@ class Tracker:
             if marginal:
                 if unc < c.uncertainty_cap:
                     unc += 1
-                    pose_b = pick_lane(bank16, best_idx).reshape(4, 4)
+                    pose_b = self.bank.pick_lane(bank16, best_idx).reshape(4, 4)
                     _, p_b, nc_b = weight_particles(
                         self.camera, pose_b[None], self.markers_h, self.marker_mask, det.xy,
                         det.mask, dyn.back_projection_pixel_tolerance_pf,
@@ -367,7 +391,7 @@ class Tracker:
                         p = p_b[0]
                         three = p[argsort_stable((p[:, 0] < 0).to(torch.int32))][:3]
                         res = short_p3p(self.camera, det, self.markers_h, self.marker_mask, three,
-                                        bank16, c, dyn)
+                                        bank16, c, dyn, fill_seeds=self.bank.fill_seeds)
                         if self.host(res.success):
                             state = state.replace(bank=res.bank)
                             flag = int(FailFlag.SHORT_P3P_SUCCESS)
@@ -403,7 +427,7 @@ class Tracker:
             coast = coast + 1 if coast_ok else 0
             state = state.replace(
                 fail_flag=self._t(int(FailFlag.PF_NO_REASONABLE_PARTICLE), torch.int32),
-                predicted_pose=pick_lane(bank16, best_idx).reshape(4, 4),
+                predicted_pose=self.bank.pick_lane(bank16, best_idx).reshape(4, 4),
                 pose_updated=self._t(False, torch.bool),
                 weights=weights_norm,
             )
@@ -417,7 +441,12 @@ class Tracker:
         c = self.config
         dev = self.device
         if c.resample_min_ess <= 0.0 or ess_h < c.resample_min_ess:
-            if c.use_pallas_resample:
+            if self.resample_fn is not None:
+                out = self.resample_fn(key, weights_norm, bank16)
+                resampled16, most = out.resampled, out.most
+                state = state.replace(resample_clipped=state.resample_clipped
+                                      + out.clipped.to(torch.int32))
+            elif c.use_pallas_resample:
                 resampled16, most, decoded = resample_bank(key, weights_norm, bank16,
                                                            _sort_resample, self.host)
                 (self.decoded_frames if decoded else self.fallback_frames).append(self.frames)
@@ -429,7 +458,7 @@ class Tracker:
         else:
             resampled16, most = bank16, argmax_idx
 
-        pre_gn = pick_lane(bank16, most).reshape(4, 4)
+        pre_gn = self.bank.pick_lane(bank16, most).reshape(4, 4)
         tol_pf = dyn.back_projection_pixel_tolerance_pf
         _, pairs_1, _ = weight_particles(self.camera, pre_gn[None], self.markers_h,
                                          self.marker_mask, det.xy, det.mask, tol_pf,
@@ -502,7 +531,7 @@ def _sort_resample(key, weights, bank16):
 
 
 def make_tracker(camera: Camera, markers_h, marker_mask, config: TrackerConfig,
-                 device="cuda") -> Tracker:
+                 device="cuda", pf_fn=None, resample_fn=None, mesh=None) -> Tracker:
     """Build the per-frame step for one target on `device` (the card unless
-    asked otherwise)."""
-    return Tracker(camera, markers_h, marker_mask, config, device)
+    asked otherwise); the hooks and the mesh as `Tracker` takes them."""
+    return Tracker(camera, markers_h, marker_mask, config, device, pf_fn, resample_fn, mesh)

@@ -13,6 +13,9 @@ import torch
 
 from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3
 from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
+from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
+from pf_monocular_pose_estimator_tpu_torch.parallel import LocalMesh, shard_lanes, unshard_lanes
+from pf_monocular_pose_estimator_tpu_torch.parallel.resample import make_distributed_resampler
 from pf_monocular_pose_estimator_tpu_torch.pf import gather_kernel as gk
 from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel as rk
 from pf_monocular_pose_estimator_tpu_torch.pf import resample_kernel as fk
@@ -177,6 +180,59 @@ def test_resample_gather_exact(dev):
     assert torch.equal(got, sk.resample_gather_plain(bank, anc))
 
 
+@pytest.mark.parametrize("profile", ["window", "full_blocks", "identity"])
+def test_ring_gather_exact(dev, profile):
+    """Kernel H at the shapes of N = 100,000 over P = 4: the own block is the
+    top of a (16, S) bank (rows strided, uncopied), positions land in every
+    block, and clamped draws break their order."""
+    rng = np.random.default_rng(7)
+    s, w = 25_000, 6_250
+    bank = torch.from_numpy(rng.normal(size=(16, s)).astype(np.float32)).to(dev)
+    other = lambda n: torch.from_numpy(rng.normal(size=(12, n)).astype(np.float32)).to(dev)
+    blocks = {"window": [bank[:12], other(w), other(w)],
+              "full_blocks": [bank[:12]] + [other(s) for _ in range(4)],
+              "identity": [bank[:12]]}[profile]
+    total = sum(b.shape[1] for b in blocks)
+    if profile == "identity":
+        pos = torch.arange(s, dtype=torch.int32, device=dev)
+    else:
+        pos = torch.from_numpy(np.sort(rng.integers(0, total, s)).astype(np.int32))
+        pos[::97] = int(pos[s // 2])
+        pos = pos.to(dev)
+        assert int(pos.min()) < s <= total - blocks[-1].shape[1] <= int(pos.max())
+    before = hk.ring_gather.launches
+    got = hk.ring_gather(blocks, pos)
+    torch.cuda.synchronize()
+    assert hk.ring_gather.launches == before + 1
+    assert torch.equal(got, hk.ring_gather_plain(blocks, pos))
+    if profile == "identity":
+        assert torch.equal(got[:12], bank[:12])
+        assert got[12:].T.unique(dim=0).tolist() == [[0.0, 0.0, 0.0, 1.0]]
+
+
+@pytest.mark.parametrize("window", ["auto", None])
+def test_sharded_resampler_exact_across_widths(dev, window):
+    """The ring resampler on the card (kernel H per shard) equals the
+    single-device sort resampler + kernel C at every width."""
+    rng = np.random.default_rng(8)
+    n = 20_000
+    bank, prm = _pf_inputs(dev, n, rng)
+    _, w = sk.pf_step(bank, prm, (1, 2, 3, 4), 5, 16)
+    w = w / w.sum()
+    anc, counts, most = stratified_resample_soa(prng.prng_key(5), w)
+    want = sk.resample_gather(bank, anc)
+    for p in (1, 2, 4, 8):
+        mesh = LocalMesh(p)
+        before = hk.ring_gather.launches
+        out = make_distributed_resampler(mesh, n, payload_window=window)(
+            prng.prng_key(5), shard_lanes(mesh, w), shard_lanes(mesh, bank))
+        torch.cuda.synchronize()
+        assert hk.ring_gather.launches == before + p
+        assert torch.equal(unshard_lanes(mesh, out.resampled), want)
+        assert torch.equal(unshard_lanes(mesh, out.counts).long(), counts.long())
+        assert int(out.most) == int(most) and int(out.clipped) == 0
+
+
 def test_gn_refine_matches_plain(dev):
     rng = np.random.default_rng(6)
     b, m = 11, 5
@@ -207,3 +263,8 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         gk.windowed_gather(torch.zeros(16, 4096, device=dev),
                            torch.zeros(4096, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        hk.ring_gather([torch.zeros(12, 8, device=dev)], torch.zeros(8, dtype=torch.int64,
+                                                                     device=dev))
+    with pytest.raises(ValueError):
+        hk.ring_gather([torch.zeros(12, 8)], torch.zeros(8, dtype=torch.int32, device=dev))
