@@ -8,10 +8,12 @@ Phases (any failure raises and exits non-zero):
   2. build   -- compiles the port's CUDA kernels from csrc/ (nvcc);
   3. kernels -- every kernel of the port against its plain PyTorch
      version on the card, at the shapes the main path gives it (N =
-     100,000, M = 5, K = 16), with CUDA-event times for both, the least
-     time the card could take (`bound_ms`, from the bytes and operations
-     of this run's inputs) and, where one PyTorch call computes the same
-     function, that call's time (`library_ms`; the port never calls it);
+     100,000, M = 5, K = 16), with CUDA-event times for both, the kernel's
+     time on the card alone (`device_ms`, a CUDA graph of 20 calls), the
+     least time the card could take (`bound_ms`, from the bytes and
+     operations of this run's inputs) and, where one PyTorch call computes
+     the same function, that call's times (`library_ms`,
+     `library_device_ms`; the port never calls it);
   4. replay  -- tests/golden/golden_sequence.npz (60 frames, 752x480)
      through `make_tracker(..., device="cuda")` at 100,000 particles,
      min_blob_area=8, pf_max_retries=8; every frame must update, ATE
@@ -37,6 +39,10 @@ Phases (any failure raises and exits non-zero):
   9. group -- a `torch.distributed` group of this one rank over `nccl`
      carries the sharded step's collectives for a few frames, which must
      equal the local mesh of one shard bit for bit.
+After phase 3 it reports the `-Xptxas -v` line (registers, stack frame,
+spills) of every kernel, and the device time of each launch of kernels A
+and D by torch.profiler.  To compare with another commit on one card, copy
+this script into a checkout of it and run the two in turns.
 Phase 3 also holds the ring resampler at P = 1, 2, 4, 8 and kernel B per
 shard against their whole-bank results, bit for bit.
 The last three lines are the card, the kernel table and the device line.
@@ -46,6 +52,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -154,6 +161,45 @@ def load_golden(device):
     return d, cam, markers
 
 
+def crop_inputs(d, device):
+    """Kernel A's main-path input: a 192x256 crop around the LEDs of golden
+    frame 17 and its parameters (ROI, threshold 240, areas 8-160, sigma 0.6)."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
+
+    led = d["led_pixels"][17]
+    x0 = int(np.clip(round(led[:, 0].mean() - 128), 0, 752 - 256))
+    y0 = int(np.clip(round(led[:, 1].mean() - 96), 0, 480 - 192))
+    crop = torch.from_numpy(d["frames"][17][y0:y0 + 192, x0:x0 + 256].astype(np.float32))
+    prm = dk.make_params([6.0, 9.0, 240.0, 170.0], 240.0, 8.0, 160.0, 0.6, device)
+    return crop.contiguous().to(device), prm
+
+
+def gn_inputs(d, cam, markers, device, det_xy=None, seed=1):
+    """Kernel D's main-path input: 11 = 2M + 1 hypotheses near the pose of
+    golden frame 10, the last five each missing one marker, bound to
+    `det_xy` (default: the projected markers plus 0.3 px of noise)."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3, project
+
+    rng = np.random.default_rng(seed)
+    gt = torch.from_numpy(d["poses"][10]).to(device)
+    if det_xy is None:
+        det_xy = project(cam, gt, markers) + torch.from_numpy(
+            rng.normal(0, 0.3, (5, 2)).astype(np.float32)).to(device)
+    b = 11
+    tw_d = torch.from_numpy(rng.normal(0.0, 0.01, (b, 6)).astype(np.float32)).to(device)
+    poses0 = exp_se3(tw_d) @ gt
+    dfm = torch.arange(5, device=device).repeat(b, 1)
+    dfm[6:, :] = torch.where(torch.eye(5, dtype=torch.bool, device=device), -1, dfm[6:, :])
+    cmask = dfm >= 0
+    scal_d = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy])
+    mark = markers[:, :3].T.contiguous()
+    du = det_xy[:, 0][dfm.clamp(min=0)].contiguous()
+    dv = det_xy[:, 1][dfm.clamp(min=0)].contiguous()
+    return (scal_d, poses0.reshape(b, 16).contiguous(), mark, du, dv, cmask.float())
+
+
 def check_kernels(device, d, cam, markers):
     """Phase 3: kernel vs plain at main-path shapes; returns the table rows."""
     import torch
@@ -185,17 +231,13 @@ def check_kernels(device, d, cam, markers):
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/detect.cu",
                      replaces=f"{REF}/ops/pallas_kernels.py:362", max_abs_err=err,
                      ms=time_ms(lambda: dk.threshold_blur(frame, prm, 5)),
+                     device_ms=device_time_ms(lambda: dk.threshold_blur(frame, prm, 5)),
                      plain_ms=time_ms(lambda: dk.threshold_blur_plain(frame, prm, 5, True), 5),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
     print(f"[kernels] threshold_blur 480x752: exact (max abs err {err})")
 
     # A: detect_stats on a 192x256 crop around the LEDs of golden frame 17
-    led = d["led_pixels"][17]
-    x0 = int(np.clip(round(led[:, 0].mean() - 128), 0, 752 - 256))
-    y0 = int(np.clip(round(led[:, 1].mean() - 96), 0, 480 - 192))
-    crop = torch.from_numpy(d["frames"][17][y0:y0 + 192, x0:x0 + 256].astype(np.float32))
-    crop = crop.contiguous().to(device)
-    prm_c = dk.make_params([6.0, 9.0, 240.0, 170.0], 240.0, 8.0, 160.0, 0.6, device)
+    crop, prm_c = crop_inputs(d, device)
     lab, maps, top = dk.detect_stats(crop, prm_c, 5, True, 12, 16)
     lab_p, maps_p, top_p = dk.detect_stats_plain(crop, prm_c, 5, True, 12, 16)
     torch.cuda.synchronize()
@@ -213,6 +255,8 @@ def check_kernels(device, d, cam, markers):
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/detect.cu",
                      replaces=f"{REF}/ops/pallas_kernels.py:299", max_abs_err=0.0,
                      ms=time_ms(lambda: dk.detect_stats(crop, prm_c, 5, True, 12, 16)),
+                     device_ms=device_time_ms(lambda: dk.detect_stats(crop, prm_c, 5, True, 12,
+                                                                      16)),
                      plain_ms=time_ms(lambda: dk.detect_stats_plain(crop, prm_c, 5, True, 12, 16),
                                       3),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
@@ -259,6 +303,7 @@ def check_kernels(device, d, cam, markers):
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/pf_step.cu",
                      replaces=f"{REF}/pf/pallas_step.py:404", max_abs_err=err_b,
                      ms=time_ms(lambda: sk.pf_step(bank, prm_b, keys, 5, 16)),
+                     device_ms=device_time_ms(lambda: sk.pf_step(bank, prm_b, keys, 5, 16)),
                      plain_ms=time_ms(lambda: sk.pf_step_plain(bank, prm_b, keys, 5, 16), 5),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
@@ -292,6 +337,8 @@ def check_kernels(device, d, cam, markers):
                      replaces=f"{REF}/pf/pallas_step.py:299", max_abs_err=float(
                          (got[1] - want[1]).abs().max()),
                      ms=time_ms(lambda: sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True)),
+                     device_ms=device_time_ms(lambda: sk.pf_step(bank, prm_b, keys, 5, 16,
+                                                                 want_pairs=True)),
                      plain_ms=time_ms(lambda: sk.pf_step_plain(bank, prm_b, keys, 5, 16,
                                                                want_pairs=True), 5),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
@@ -314,6 +361,7 @@ def check_kernels(device, d, cam, markers):
                      replaces=f"{REF}/pf/pallas_weight.py:155",
                      max_abs_err=float((got[0] - want[0]).abs().max()),
                      ms=time_ms(lambda: wk.weight(bank_k, wprm, 5, 16)),
+                     device_ms=device_time_ms(lambda: wk.weight(bank_k, wprm, 5, 16)),
                      plain_ms=time_ms(lambda: wk.weight_plain(bank_k, wprm, 5, 16), 5),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
@@ -333,9 +381,11 @@ def check_kernels(device, d, cam, markers):
                      replaces=f"{REF}/pf/pallas_step.py:668",
                      also_replaces=f"{REF}/pf/pallas_step.py:697", max_abs_err=0.0,
                      ms=time_ms(lambda: sk.resample_gather(bank_k, anc)),
+                     device_ms=device_time_ms(lambda: sk.resample_gather(bank_k, anc)),
                      plain_ms=time_ms(lambda: sk.resample_gather_plain(bank_k, anc)),
                      bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lambda: bank_k.index_select(1, anc))))
+                     library_ms=time_ms(lambda: bank_k.index_select(1, anc)),
+                     library_device_ms=device_time_ms(lambda: bank_k.index_select(1, anc))))
     print(f"[kernels] resample_gather N={n}: exact ({n_unique} distinct ancestors)")
     rows.append(check_ring_gather(device, bank_k, wn, got_c))
 
@@ -376,31 +426,26 @@ def check_kernels(device, d, cam, markers):
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/resample_decode.cu",
                      replaces=f"{REF}/pf/pallas_resample.py:181", max_abs_err=0.0,
                      ms=time_ms(lambda: fk.decode(rank_c, bank_k)),
+                     device_ms=device_time_ms(lambda: fk.decode(rank_c, bank_k)),
                      plain_ms=time_ms(lambda: fk.decode_plain(rank_c, bank_k), 5),
                      bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lambda: bank_k.index_select(1, anc_c))))
+                     library_ms=time_ms(lambda: bank_k.index_select(1, anc_c)),
+                     library_device_ms=device_time_ms(lambda: bank_k.index_select(1, anc_c))))
     # read 12 rows and the int64 ancestors, write 16 rows
     b_ms, b_by = bound(n * (48 + 8 + 64), n * 6)
     rows.append(dict(name="monotone_gather", route="cuda",
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/monotone_gather.cu",
                      replaces=f"{REF}/pf/pallas_gather.py:93", max_abs_err=0.0,
                      ms=time_ms(lambda: gk.windowed_gather(bank_k, anc_c)),
+                     device_ms=device_time_ms(lambda: gk.windowed_gather(bank_k, anc_c)),
                      plain_ms=time_ms(lambda: gk.monotone_gather_plain(bank_k, anc_c), 5),
                      bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lambda: bank_k.index_select(1, anc_c))))
+                     library_ms=time_ms(lambda: bank_k.index_select(1, anc_c)),
+                     library_device_ms=device_time_ms(lambda: bank_k.index_select(1, anc_c))))
 
     # D: batched Gauss-Newton over 11 = 2M + 1 hypotheses
-    b = 11
-    tw_d = torch.from_numpy(rng.normal(0.0, 0.01, (b, 6)).astype(np.float32)).to(device)
-    poses0 = exp_se3(tw_d) @ gt
-    dfm = torch.arange(5, device=device).repeat(b, 1)
-    dfm[6:, :] = torch.where(torch.eye(5, dtype=torch.bool, device=device), -1, dfm[6:, :])
-    cmask = dfm >= 0
-    scal_d = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy])
-    mark = markers[:, :3].T.contiguous()
-    du = det_xy[:, 0][dfm.clamp(min=0)].contiguous()
-    dv = det_xy[:, 1][dfm.clamp(min=0)].contiguous()
-    args = (scal_d, poses0.reshape(b, 16).contiguous(), mark, du, dv, cmask.float())
+    args = gn_inputs(d, cam, markers, device, det_xy[:5])
+    b = args[1].shape[0]
     pk, sk_, ak = rk.gn_refine(*args, 25, 1e-4)
     pp, sp, ap = rk.gn_refine_plain(*args, 25, 1e-4)
     torch.cuda.synchronize()
@@ -420,6 +465,7 @@ def check_kernels(device, d, cam, markers):
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/gn_refine.cu",
                      replaces=f"{REF}/pf/pallas_refine.py:279", max_abs_err=err_d,
                      ms=time_ms(lambda: rk.gn_refine(*args, 25, 1e-4)),
+                     device_ms=device_time_ms(lambda: rk.gn_refine(*args, 25, 1e-4)),
                      plain_ms=time_ms(lambda: rk.gn_refine_plain(*args, 25, 1e-4), 3),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
     return rows
@@ -576,6 +622,89 @@ def one_rank_group(device, d, cam, markers):
           f"flags, bank), {group.frames_per_second:.2f} frames/s")
 
 
+PTXAS_FIELDS = re.compile(r"Function properties for (\S+)|(\d+) bytes stack frame, (\d+) bytes "
+                          r"spill stores, (\d+) bytes spill loads|Used (\d+) registers")
+
+
+def ptxas_report(cuda_lib) -> list:
+    """`nvcc -Xptxas -v` of every source in csrc/ with the port's flags, one
+    nvcc each, all at once: (source, kernel, registers, stack frame, spill
+    stores, spill loads) per kernel.  gn_refine.cu is built a second time
+    with sinf/cosf as __sinf/__cosf, whose frame tells the math library's
+    local memory from the kernel's own."""
+    import tempfile
+
+    csrc = ROOT / "pf_monocular_pose_estimator_tpu_torch" / "csrc"
+    with tempfile.TemporaryDirectory() as tmp:
+        fast_trig = Path(tmp) / "gn_refine_fast_trig.cu"
+        fast_trig.write_text((csrc / "gn_refine.cu").read_text()
+                             .replace("sinf(", "__sinf(").replace("cosf(", "__cosf("))
+        sources = [csrc / name for name in cuda_lib.SOURCES] + [fast_trig]
+        procs = [subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v",
+                                   "-I", str(csrc), "-c", "-o", f"{tmp}/{i}.o", str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for i, src in enumerate(sources)]
+        rows = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            assert proc.returncode == 0, f"ptxas report: {src.name} failed:\n{err}"
+            name = None
+            for m in PTXAS_FIELDS.finditer(err):
+                if m[1]:
+                    name = m[1]
+                elif m[2]:
+                    rows.append([src.name, name, None, *map(int, m.group(2, 3, 4))])
+                elif rows and rows[-1][1] == name:
+                    rows[-1][2] = int(m[5])
+    demangler = Path(cuda_lib._nvcc()).parent / "cu++filt"
+    if demangler.is_file():
+        names = subprocess.run([str(demangler)], input="\n".join(r[1] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for r, full in zip(rows, names):
+            r[1] = kernel_name(full)
+    return rows
+
+
+def kernel_name(full: str) -> str:
+    """'void <unnamed>::k<(int)5>(float const*, int)' -> 'k<(int)5>'."""
+    full = full.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+    full = full.removeprefix("void ")
+    return (full.rsplit("(", 1)[0] if full.endswith(")") else full)[:60]
+
+
+def launch_times_us(fn, reps: int = 20):
+    """Device time of each kernel that one call of `fn` launches (µs), by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if total > 0 and ev.count >= reps:
+            times[kernel_name(ev.key)] = round(total / reps, 3)
+    return times or "not measured (the profiler saw no device time)"
+
+
+def report(device, d, cam, markers, cuda_lib, dk, rk):
+    """The build report of every kernel and the device time of each launch of
+    kernels A and D on their main-path inputs."""
+    for src, name, regs, frame, stores, loads in ptxas_report(cuda_lib):
+        print(f"[report] ptxas {src} {name}: {regs} registers, {frame} bytes stack frame, "
+              f"{stores} bytes spill stores, {loads} bytes spill loads")
+    crop, prm = crop_inputs(d, device)
+    gn_args = gn_inputs(d, cam, markers, device)
+    print(f"[report] {card_line()}: detect_stats launches (us): "
+          f"{launch_times_us(lambda: dk.detect_stats(crop, prm, 5, True, 12, 16))}")
+    print(f"[report] {card_line()}: gn_refine launches (us): "
+          f"{launch_times_us(lambda: rk.gn_refine(*gn_args, 25, 1e-4))}")
+
+
 def accuracy(est, gt):
     err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
     rel = np.einsum("tij,tkj->tik", est[:, :3, :3], gt[:, :3, :3])
@@ -614,6 +743,7 @@ def main() -> int:
     d, cam, markers = load_golden(device)
     rows = check_kernels(device, d, cam, markers)
     torch.cuda.synchronize()
+    report(device, d, cam, markers, cuda_lib, dk, rk)
 
     # launch counters: (wrapper, attribute) per kernel row
     counters = {"threshold_blur": (dk.threshold_blur, "launches"),
@@ -732,8 +862,11 @@ def main() -> int:
         on = {"pf_weight": slice_run, "resample_decode": slice_run,
               "ring_gather": sharded_run}.get(r["name"], main_run)
         r["launches"] = on.launches[r["name"]]
-        lib = "" if r["library_ms"] is None else f", library call {r['library_ms'] * 1e3:.1f} us"
-        print(f"[timing] {card}: {r['name']} kernel {r['ms'] * 1e3:.1f} us, bound "
+        lib = "" if r["library_ms"] is None else (
+            f", library call {r['library_ms'] * 1e3:.1f} us "
+            f"({r['library_device_ms'] * 1e3:.2f} on the card alone)")
+        print(f"[timing] {card}: {r['name']} kernel {r['ms'] * 1e3:.1f} us "
+              f"({r['device_ms'] * 1e3:.2f} on the card alone), bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), plain {r['plain_ms'] * 1e3:.1f} us"
               f"{lib}")
 

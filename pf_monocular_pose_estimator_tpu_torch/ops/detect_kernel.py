@@ -21,6 +21,7 @@ import torch
 from ..utils import cuda_lib
 
 N_MAPS = 10  # cnt, sx, sy, xmin, xmax, ymin, ymax, sxx, syy, sxy
+_STATS_TILE = 24  # the stats launch's interior tile (StatsShape::T in csrc/detect.cu)
 
 
 def gaussian_taps(sigma: float) -> np.ndarray:
@@ -182,18 +183,21 @@ def detect_stats(img: torch.Tensor, prm: torch.Tensor, ntaps: int, active: bool 
     if img.device.type == "cpu":
         return detect_stats_plain(img, prm, ntaps, active, sweeps, topk)
     cuda_lib.require_cuda("detect_stats", img, prm)
-    if not 0 <= sweeps <= 12 or not 1 <= topk <= 64:
-        raise ValueError("detect_stats: the kernel takes sweeps <= 12 and 1 <= topk <= 64")
-    lib = cuda_lib.library()
     h, w = img.shape
+    if not 0 <= sweeps <= 12 or not 1 <= topk <= min(64, h * w):
+        raise ValueError("detect_stats: the kernel takes sweeps <= 12 and 1 <= topk <= "
+                         "min(64, pixels)")
+    lib = cuda_lib.library()
+    n_tiles = -(-h // _STATS_TILE) * -(-w // _STATS_TILE)
     blurred = torch.empty_like(img)
     lab = torch.empty((h, w), dtype=torch.int32, device=img.device)
     maps = torch.empty((N_MAPS, h, w), dtype=torch.float32, device=img.device)
+    tile_keys = torch.empty((n_tiles * topk,), dtype=torch.int64, device=img.device)
     top = torch.empty((topk,), dtype=torch.int32, device=img.device)
     code = lib.pfmpe_detect_stats(
         img.data_ptr(), prm.data_ptr(), ntaps, h, w, int(active), sweeps, topk,
-        blurred.data_ptr(), lab.data_ptr(), maps.data_ptr(), top.data_ptr(),
-        cuda_lib.stream_ptr(img),
+        blurred.data_ptr(), lab.data_ptr(), maps.data_ptr(), tile_keys.data_ptr(),
+        top.data_ptr(), cuda_lib.stream_ptr(img),
     )
     detect_stats.launches += 1
     cuda_lib.check(code, "pfmpe_detect_stats")

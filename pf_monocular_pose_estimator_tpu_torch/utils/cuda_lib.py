@@ -35,7 +35,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
     "pfmpe_threshold_blur": (_P, _P, _I, _I, _I, _I, _P, _P),
-    "pfmpe_detect_stats": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "pfmpe_detect_stats": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "pfmpe_pf_step": (_P, _P, _I, _I, _I, _U, _U, _U, _U, _I, _I, _P, _P, _P, _P, _P),
     "pfmpe_pf_weight": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "pfmpe_resample_gather": (_P, _P, _I, _P, _P),

@@ -54,11 +54,28 @@ def test_threshold_blur_matches_pallas(golden, active, thr):
     assert ((got > 1e-3) == (want > 1e-3)).all()
 
 
-@pytest.mark.parametrize("frame_idx", [17, 41])
-def test_detect_stats_exact_vs_pallas(golden, frame_idx):
-    """Labels, counts, moment sums, bbox maps and the top-16 are exact."""
-    crop = _crop(golden, frame_idx)
-    roi = np.float32([6.0, 9.0, 240.0, 170.0])
+def _tied_crop(h=64, w=96):
+    """Identical 3x3 saturated squares every 10 px: 54 components of one
+    area, so the top-16 is decided by the flat index."""
+    img = np.zeros((h, w), np.float32)
+    for y in range(4, h - 4, 10):
+        for x in range(4, w - 4, 10):
+            img[y - 1:y + 2, x - 1:x + 2] = 255.0
+    return img
+
+
+@pytest.mark.parametrize("case", [17, 41, "tied", "empty"])
+def test_detect_stats_exact_vs_pallas(golden, case):
+    """Labels, counts, moment sums, bbox maps and the top-16 are exact: on
+    two golden crops, on a 64x96 crop of more than 16 components of tied
+    areas, and on one with no foreground (the top-16 are score-0 pixels)."""
+    if case == "tied":
+        crop, roi = _tied_crop(), np.float32([0.0, 0.0, 96.0, 64.0])
+    elif case == "empty":
+        crop = np.random.default_rng(3).uniform(0, 200, (64, 96)).astype(np.float32)
+        roi = np.float32([0.0, 0.0, 96.0, 64.0])
+    else:
+        crop, roi = _crop(golden, case), np.float32([6.0, 9.0, 240.0, 170.0])
     ref = detect_stats_pallas(jnp.asarray(crop), jnp.asarray(roi), 240.0, 0.6, True, 12,
                               interpret=True, second_moments=True, topk=16, min_area=8.0,
                               max_area=160.0)
@@ -69,7 +86,11 @@ def test_detect_stats_exact_vs_pallas(golden, frame_idx):
     for i in range(dk.N_MAPS):
         np.testing.assert_array_equal(maps[i].numpy(), ref[1 + i], err_msg=f"map {i}")
     np.testing.assert_array_equal(top.numpy(), ref[11][0])
-    assert (lab.numpy() > 0).sum() > 50
+    roots = int((lab.numpy().ravel() == np.arange(1, lab.numel() + 1)).sum())
+    if case == "empty":
+        assert roots == 0 and top.tolist() == list(range(16))
+    else:
+        assert (lab.numpy() > 0).sum() > 50 and roots >= (17 if case == "tied" else 5)
 
 
 def test_fused_crop_detections_match_pallas(golden):

@@ -67,6 +67,54 @@ def test_detect_stats_exact(dev, shape):
     assert torch.equal(top, top_p)
 
 
+def _tied_image(h, w):
+    """Identical 3x3 saturated squares every 10 px: components of one area,
+    so the ranking falls back on the flat index."""
+    img = np.zeros((h, w), np.float32)
+    for y in range(4, h - 4, 10):
+        for x in range(4, w - 4, 10):
+            img[y - 1:y + 2, x - 1:x + 2] = 255.0
+    return torch.from_numpy(img)
+
+
+def _seam_edge_image(rng, h, w):
+    """Random blobs, plus components across the stats tiles' seams (x and y
+    at multiples of 16, 24 and 32) that touch the frame's edges."""
+    img = _image(rng, h, w).numpy()
+    img[0:3, 20:50] = 255.0  # top edge, across x = 24, 32, 48
+    img[30:36, 20:36] = 255.0  # across x = 24, 32 and y = 32
+    img[h - 2:, w - 40:] = 255.0  # bottom-right corner
+    img[40:60, 0:2] = 255.0  # left edge, across y = 48
+    return torch.from_numpy(img)
+
+
+@pytest.mark.parametrize("case,shape,k", [
+    ("tied", (64, 96), 16), ("tied", (64, 96), 64), ("empty", (64, 96), 16),
+    ("seam_edge", (96, 128), 16), ("random", (61, 200), 16), ("random", (480, 752), 16),
+    ("random", (192, 256), 1), ("random", (192, 256), 64)])
+def test_detect_stats_edge_cases_exact(dev, case, shape, k):
+    """Kernel A's two-stage top-k and packed bbox sweeps against the plain
+    version: more than k roots of tied areas, no foreground (k pixels of
+    score 0), components across tile seams and frame edges, shapes that are
+    no multiple of any tile, k = 1 and k = 64."""
+    rng = np.random.default_rng(9)
+    h, w = shape
+    img = {"tied": lambda: _tied_image(h, w),
+           "empty": lambda: torch.from_numpy(rng.uniform(0, 200, shape).astype(np.float32)),
+           "seam_edge": lambda: _seam_edge_image(rng, h, w),
+           "random": lambda: _image(rng, h, w)}[case]().to(dev)
+    prm = dk.make_params([0.0, 0.0, float(w), float(h)], 240.0, 8.0, 160.0, 0.6, dev)
+    got = dk.detect_stats(img, prm, 5, True, 12, k)
+    want = dk.detect_stats_plain(img, prm, 5, True, 12, k)
+    torch.cuda.synchronize()
+    roots = int((want[0] == torch.arange(1, h * w + 1, device=dev).reshape(h, w)).sum())
+    assert (roots > 16) if case == "tied" else (roots == 0) if case == "empty" else roots > 0
+    assert torch.equal(got[0], want[0])
+    for i in range(dk.N_MAPS):
+        assert torch.equal(got[1][i], want[1][i]), f"map {i}"
+    assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
+
+
 def _pf_inputs(dev, n, rng):
     gt = exp_se3(torch.tensor([0.02, -0.01, 0.0, 0.1, -0.2, 0.3])).to(dev)
     gt[2, 3] += 1.3
@@ -233,6 +281,63 @@ def test_sharded_resampler_exact_across_widths(dev, window):
         assert int(out.most) == int(most) and int(out.clipped) == 0
 
 
+def _gn_batch(m, b, dev):
+    """B hypotheses of M markers near a pose 1.4 m in front of the camera.
+    Hypothesis 0 starts at the optimum of noise-free pairs, so it freezes at
+    iteration 1; the last one (for B = 1: the only one, at even M) starts far
+    along the optical axis, at the first distance and tilt from which GN ends
+    with a larger error than it began with (the divergence revert)."""
+    rng = np.random.default_rng(10 * m + b)
+    gt = exp_se3(torch.tensor([0.02, -0.01, 0.0, 0.1, 0.2, 0.0]))
+    gt[2, 3] += 1.4
+    mark = torch.from_numpy(rng.normal(0, 0.08, (3, m)).astype(np.float32))
+    pts = gt[:3, :3] @ mark + gt[:3, 3:]
+    u, v = 420.0 * pts[0] / pts[2] + 376.0, 418.0 * pts[1] / pts[2] + 240.0
+    du = u.repeat(b, 1) + torch.from_numpy(rng.normal(0, 0.3, (b, m)).astype(np.float32))
+    dv = v.repeat(b, 1) + torch.from_numpy(rng.normal(0, 0.3, (b, m)).astype(np.float32))
+    poses = (exp_se3(torch.from_numpy(rng.normal(0, 0.02, (b, 6)).astype(np.float32))) @ gt)
+    poses = poses.reshape(b, 16)
+    mask = torch.from_numpy((rng.random((b, m)) > 0.1).astype(np.float32))
+    scal = torch.tensor([420.0, 418.0, 376.0, 240.0], device=dev)
+    frozen, diverging = (0, b - 1) if b > 1 else ((None, 0) if m % 2 == 0 else (0, None))
+    if frozen is not None:
+        poses[frozen], du[frozen], dv[frozen], mask[frozen] = gt.reshape(16), u, v, 1.0
+    if diverging is not None:
+        mask[diverging] = 1.0
+        far = torch.stack([(exp_se3(torch.tensor([0.0, 0.0, z, rx, 0.0, 0.0])) @ gt).reshape(16)
+                           for z in (3.0, 5.0, 10.0, 20.0, 40.0, 80.0)
+                           for rx in (0.0, 0.3, -0.5, 1.0)])
+        n = far.shape[0]
+        rep = lambda x: x[diverging].repeat(n, 1).to(dev)
+        stats = rk.gn_refine_plain(scal, far.to(dev), mark.to(dev), rep(du), rep(dv), rep(mask),
+                                   25, 1e-4)[1]
+        hits = torch.nonzero(stats[:, 5] > 0).flatten()
+        assert hits.numel() > 0, "no far start diverged"
+        poses[diverging] = far[int(hits[0])]
+    args = (scal, poses.to(dev), mark.to(dev), du.to(dev), dv.to(dev), mask.to(dev))
+    return args, frozen, diverging
+
+
+@pytest.mark.parametrize("b", [1, 11, 40])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_gn_refine_every_m_exact(dev, m, b):
+    """Kernel D (one warp a hypothesis, M a template parameter) against its
+    plain version at every M and several batch sizes, with a hypothesis that
+    freezes at iteration 1 and one that diverges: all three outputs equal
+    bit for bit."""
+    args, frozen, diverging = _gn_batch(m, b, dev)
+    got = rk.gn_refine(*args, 25, 1e-4)
+    want = rk.gn_refine_plain(*args, 25, 1e-4)
+    torch.cuda.synchronize()
+    if frozen is not None:
+        assert float(want[1][frozen, 2]) == 1.0 and float(want[1][frozen, 4]) == 1.0
+    if diverging is not None:
+        assert float(want[1][diverging, 5]) == 1.0
+        assert torch.equal(want[0][diverging], args[1][diverging])
+    for g, w in zip(got, want):  # a diverged run may leave NaN in its normal matrix
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
 def test_gn_refine_matches_plain(dev):
     rng = np.random.default_rng(6)
     b, m = 11, 5
@@ -253,6 +358,8 @@ def test_gn_refine_matches_plain(dev):
 def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         dk.threshold_blur(torch.zeros(8, 8, device=dev), torch.zeros(11, device=dev), 5)
+    with pytest.raises(ValueError):  # fewer pixels than the top-k asks for
+        dk.detect_stats(torch.zeros(4, 4, device=dev), torch.zeros(12, device=dev), 5, topk=17)
     with pytest.raises(ValueError):
         dk.threshold_blur(torch.zeros(8, 8, device=dev), torch.zeros(12), 5)
     with pytest.raises(ValueError):

@@ -8,6 +8,7 @@ and residuals to 1e-3 px."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pf_monocular_pose_estimator_tpu.geometry.camera import Camera as RefCamera
@@ -23,28 +24,33 @@ from pf_monocular_pose_estimator_tpu_torch.pf import refine, refine_kernel
 torch.set_num_threads(2)
 
 CAM = dict(fx=420.0, fy=418.0, cx=376.0, cy=240.0)
+GT = [0.02, -0.01, 1.5, 0.1, -0.05, 0.3]  # twist of the true pose
 
 
-def _problem(seed, b=11):
+def _problem(seed, b=11, m=5):
     rng = np.random.default_rng(seed)
-    markers = np.concatenate([rng.normal(0, 0.08, (5, 3)), np.ones((5, 1))], 1).astype(np.float32)
-    gt = np.asarray(ref_exp(jnp.asarray([0.02, -0.01, 1.5, 0.1, -0.05, 0.3], jnp.float32)))
+    markers = np.concatenate([rng.normal(0, 0.08, (m, 3)), np.ones((m, 1))], 1).astype(np.float32)
+    gt = np.asarray(ref_exp(jnp.asarray(GT, jnp.float32)))
     det = np.zeros((16, 2), np.float32)
-    det[:5] = np.asarray(ref_project(RefCamera.create(**CAM), jnp.asarray(gt), jnp.asarray(markers)))
-    det[:5] += rng.normal(0, 0.3, (5, 2)).astype(np.float32)
-    det[5] = det[2] + 3.0  # a clone: the swap hypothesis binds it
+    det[:m] = np.asarray(ref_project(RefCamera.create(**CAM), jnp.asarray(gt), jnp.asarray(markers)))
+    det[:m] += rng.normal(0, 0.3, (m, 2)).astype(np.float32)
+    det[m] = det[2] + 3.0  # a clone: the swap hypothesis binds it
     poses0 = np.asarray(jax.vmap(lambda t: ref_exp(t) @ gt)(
         jnp.asarray(rng.normal(size=(b, 6)) * 0.02, jnp.float32)))
-    dfm = np.tile(np.arange(5, dtype=np.int32), (b, 1))
-    dfm[1, 2] = 5
-    for h in range(6, b):
-        dfm[h, h - 6] = -1
+    dfm = np.tile(np.arange(m, dtype=np.int32), (b, 1))
+    dfm[1, 2] = m
+    for h in range(m + 1, b):
+        dfm[h, h - m - 1] = -1
     mask = dfm >= 0
     return markers, det, poses0, dfm, mask
 
 
-def test_batched_gn_matches_pallas():
-    markers, det, poses0, dfm, mask = _problem(0)
+def _check_batched_gn(markers, det, poses0, dfm, mask, diverged=()):
+    """The plain twin (through `gauss_newton_refine_batched`) against the
+    Pallas kernel.  A diverged hypothesis reverts to its start pose and
+    error on both sides; its residual and normal matrix are those of the
+    unreverted last pose, which a run far from any minimum reaches along a
+    path where ulps grow, so those two are compared on the other rows."""
     want = gauss_newton_refine_pallas(RefCamera.create(**CAM), jnp.asarray(poses0),
                                       jnp.asarray(markers), jnp.asarray(det), jnp.asarray(dfm),
                                       jnp.asarray(mask), 25, 1e-4, interpret=True)
@@ -54,14 +60,39 @@ def test_batched_gn_matches_pallas():
     np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got.num_iterations.numpy(), np.asarray(want.num_iterations))
     np.testing.assert_array_equal(got.converged.numpy(), np.asarray(want.converged))
-    np.testing.assert_allclose(got.max_residual.numpy(), np.asarray(want.max_residual), rtol=0,
-                               atol=1e-3)
     np.testing.assert_allclose(got.final_error.numpy(), np.asarray(want.final_error), rtol=1e-3,
                                atol=1e-4)
+    for i in diverged:
+        np.testing.assert_array_equal(got.pose.numpy()[i], poses0[i])
+        np.testing.assert_array_equal(np.asarray(want.pose)[i], poses0[i])
+        assert float(got.final_error[i]) == float(got.initial_error[i])
+    keep = np.setdiff1d(np.arange(len(poses0)), diverged)
+    np.testing.assert_allclose(got.max_residual.numpy()[keep], np.asarray(want.max_residual)[keep],
+                               rtol=0, atol=1e-3)
     # covariance = inverse of the final normal matrix: the bar tests/test_pf.py uses
-    np.testing.assert_allclose(got.covariance.numpy(), np.asarray(want.covariance), rtol=1e-2,
-                               atol=1e-4)
+    np.testing.assert_allclose(got.covariance.numpy()[keep], np.asarray(want.covariance)[keep],
+                               rtol=1e-2, atol=1e-4)
     assert float(got.max_residual.numpy()[0]) < 1.5  # the clean binding converged
+
+
+def test_batched_gn_matches_pallas():
+    _check_batched_gn(*_problem(0))
+
+
+@pytest.mark.parametrize("m", [3, 8])
+def test_batched_gn_matches_pallas_diverging(m):
+    """2M + 1 hypotheses at M = 3 and M = 8; the last binds every marker but
+    starts 3 m further along the optical axis, from where GN ends with a
+    larger error than it began with, and reverts.  The plain twin (what
+    kernel D is held to on the card) follows the Pallas kernel there too."""
+    markers, det, poses0, dfm, mask = _problem(0, 2 * m + 1, m)
+    poses0 = poses0.copy()
+    far = np.asarray(ref_exp(jnp.asarray([0.0, 0.0, 3.0, 0.0, 0.0, 0.0], jnp.float32)))
+    poses0[-1] = far @ np.asarray(ref_exp(jnp.asarray(GT, jnp.float32)))
+    dfm[-1] = np.arange(m)
+    if m < 4:  # two markers leave the six unknowns underdetermined: bind all three
+        dfm[m + 1:] = np.arange(m)
+    _check_batched_gn(markers, det, poses0, dfm, dfm >= 0, diverged=(2 * m,))
 
 
 def test_single_pose_gn_matches_reference():
