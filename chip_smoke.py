@@ -39,10 +39,15 @@ Phases (any failure raises and exits non-zero):
   9. group -- a `torch.distributed` group of this one rank over `nccl`
      carries the sharded step's collectives for a few frames, which must
      equal the local mesh of one shard bit for bit.
-After phase 3 it reports the `-Xptxas -v` line (registers, stack frame,
-spills) of every kernel, and the device time of each launch of kernels A
-and D by torch.profiler.  To compare with another commit on one card, copy
-this script into a checkout of it and run the two in turns.
+Phase 3 also holds F and G to their plain versions at 1,000,000 lanes and
+times F with the other placement of its window-start count.  After
+phase 3 it reports the `-Xptxas -v` line (registers, stack frame, spills)
+of every kernel (F and G must use no local memory), and the device time of
+each launch of kernels A, D, F and G by torch.profiler.  After phase 5 it
+gives the main path's device time against its wall time over 20 warm
+frames (torch.profiler), whence the card's idle share.  To compare with
+another commit on one card, copy this script into a checkout of it and
+run the two in turns.
 Phase 3 also holds the ring resampler at P = 1, 2, 4, 8 and kernel B per
 shard against their whole-bank results, bit for bit.
 The last three lines are the card, the kernel table and the device line.
@@ -420,6 +425,7 @@ def check_kernels(device, d, cam, markers):
         if profile == "covered":
             rank_c, anc_c = rank, anc_f
     assert not bool(ok_g.all()), "the uncovered profile covered every gather window"
+    check_windowed_large(device)
     # read rank and 16 rows, write 16 rows
     b_ms, b_by = bound(n * (4 + 64 + 64), n * 25)
     rows.append(dict(name="resample_decode", route="cuda",
@@ -442,6 +448,12 @@ def check_kernels(device, d, cam, markers):
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=time_ms(lambda: bank_k.index_select(1, anc_c)),
                      library_device_ms=device_time_ms(lambda: bank_k.index_select(1, anc_c))))
+
+    print(f"[report] {card_line()}: resample_decode launches N={n} (us): "
+          f"{launch_times_us(lambda: fk.decode(rank_c, bank_k))}")
+    print(f"[report] {card_line()}: monotone_gather launches N={n} (us): "
+          f"{launch_times_us(lambda: gk.windowed_gather(bank_k, anc_c))}")
+    decode_count_placements(rank_c, bank_k)
 
     # D: batched Gauss-Newton over 11 = 2M + 1 hypotheses
     args = gn_inputs(d, cam, markers, device, det_xy[:5])
@@ -469,6 +481,76 @@ def check_kernels(device, d, cam, markers):
                      plain_ms=time_ms(lambda: rk.gn_refine_plain(*args, 25, 1e-4), 3),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
     return rows
+
+
+def check_windowed_large(device):
+    """F and G against their plain versions at 1,000,000 lanes, on a covered
+    and an uncovered weight profile, with each launch's device time and F's
+    other count placement timed beside it."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.pf import gather_kernel as gk
+    from pf_monocular_pose_estimator_tpu_torch.pf import resample_kernel as fk
+    from pf_monocular_pose_estimator_tpu_torch.utils import prng
+
+    n = N_LARGE
+    gen = torch.Generator().manual_seed(2)
+    bank = torch.randn(16, n, generator=gen).to(device)
+    bank[12:15], bank[15] = 0.0, 1.0
+    lane = torch.arange(n, device=device)
+    spread = torch.where(lane < n // 2, (lane % 8 == 0).float(), torch.ones(n, device=device))
+    profiles = (("covered", torch.softmax(0.8 * torch.randn(n, generator=gen), 0).to(device)),
+                ("uncovered", spread / spread.sum()))
+    for profile, wts in profiles:
+        rank, counts, _ = fk.probe_rank(prng.prng_key(11), wts)
+        anc = torch.repeat_interleave(torch.arange(n, device=device), counts.long())
+        out, ok = fk.decode(rank, bank)
+        out_p, ok_p = fk.decode_plain(rank, bank)
+        out_g, ok_g = gk.windowed_gather(bank, anc)
+        out_gp, ok_gp = gk.monotone_gather_plain(bank, anc)
+        torch.cuda.synchronize()
+        assert torch.equal(ok, ok_p) and torch.equal(out, out_p), \
+            f"resample_decode differs from plain at N={n} ({profile})"
+        assert torch.equal(ok_g, ok_gp) and torch.equal(out_g, out_gp), \
+            f"monotone_gather differs from plain at N={n} ({profile})"
+        assert bool(ok.all()) == (profile == "covered"), f"resample_decode coverage ({profile})"
+        print(f"[kernels] resample_decode and monotone_gather N={n} {profile}: exact, "
+              f"{int(ok.sum())}/{ok.numel()} and {int(ok_g.sum())}/{ok_g.numel()} blocks covered")
+        if profile == "covered":
+            print(f"[report] {card_line()}: resample_decode launches N={n} (us): "
+                  f"{launch_times_us(lambda: fk.decode(rank, bank))}, index_select "
+                  f"{device_time_ms(lambda: bank.index_select(1, anc)) * 1e3:.2f} us")
+            print(f"[report] {card_line()}: monotone_gather launches N={n} (us): "
+                  f"{launch_times_us(lambda: gk.windowed_gather(bank, anc))}")
+            decode_count_placements(rank, bank)
+
+
+def decode_count_placements(rank, bank):
+    """Kernel F's device time (CUDA graphs of 20 calls) through `decode` as
+    built and with the other placement of the window-start count, which the
+    wrapper chooses by N (`COUNT_IN_BLOCK_CHUNKS`): in every decode block,
+    or one launch before the decode; each held to the plain version."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.pf import resample_kernel as fk
+
+    n = bank.shape[1]
+    out_p, ok_p = fk.decode_plain(rank, bank)
+    built = fk.COUNT_IN_BLOCK_CHUNKS
+    in_block = -(-n // 128) <= built
+    placements = {"as built": built,
+                  ("starts launch" if in_block else "count in every block"): (
+                      0 if in_block else -(-n // 128))}
+    times = {}
+    try:
+        for name, limit in placements.items():
+            fk.COUNT_IN_BLOCK_CHUNKS = limit
+            out, ok = fk.decode(rank, bank)
+            torch.cuda.synchronize()
+            assert torch.equal(out, out_p) and torch.equal(ok, ok_p), \
+                f"resample_decode ({name}) differs from plain at N={n}"
+            times[name] = round(device_time_ms(lambda: fk.decode(rank, bank)) * 1e3, 2)
+    finally:
+        fk.COUNT_IN_BLOCK_CHUNKS = built
+    print(f"[report] {card_line()}: resample_decode N={n} on the card alone (us): {times}")
 
 
 def check_ring_gather(device, bank_k, wn, want_c):
@@ -591,6 +673,56 @@ def replay(device, d, cam, markers, overrides=None, n_frames=None, n_particles=N
                            frames_per_second=frames.shape[0] / seconds)
 
 
+def idle_share(device, d, cam, markers, n_frames: int = 20) -> dict:
+    """The card's busy time against the wall time of `n_frames` warm
+    main-path frames: golden frames 0-19 warm a new tracker, 20-39 are timed
+    as they run, 40-59 are timed under torch.profiler (CUDA activity only),
+    whose kernels, copies and sets give the busy time (their union).  The
+    idle share is against the wall without the profiler, which adds host
+    time to each frame; the share against the profiled wall is given under
+    its own name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pf_monocular_pose_estimator_tpu_torch.tracker import TargetState, make_tracker
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+    from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
+
+    step = make_tracker(cam, markers, torch.ones(markers.shape[0], dtype=torch.bool),
+                        TrackerConfig(**MAIN), device=device)
+    state = TargetState.create(N_PARTICLES, prng_key(0), device=device)
+    frames = torch.from_numpy(d["frames"][:3 * n_frames]).to(device)
+
+    def run(lo):
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(lo, lo + n_frames):
+            state, _ = step(state, frames[i], float(d["times"][i]))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_frames
+
+    run(0)
+    wall_ms = run(n_frames)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = run(2 * n_frames)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    if busy_us <= 0:
+        return {"wall_ms_per_frame": wall_ms,
+                "device_ms_per_frame": "not measured (the trace listed no device spans)",
+                "idle_share": "not measured"}
+    device_ms = busy_us / 1e3 / n_frames
+    return {"device_ms_per_frame": device_ms, "wall_ms_per_frame": wall_ms,
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "profiled_wall_ms_per_frame": profiled_wall_ms,
+            "profiled_idle_share": 1.0 - device_ms / profiled_wall_ms,
+            "device_spans_per_frame": len(spans) / n_frames}
+
+
 def one_rank_group(device, d, cam, markers):
     """Phase 9: a `torch.distributed` group of this one rank over `nccl`
     (file rendezvous, no network) carries the sharded step's collectives; a
@@ -672,23 +804,28 @@ def kernel_name(full: str) -> str:
     return (full.rsplit("(", 1)[0] if full.endswith(")") else full)[:60]
 
 
-def launch_times_us(fn, reps: int = 20):
-    """Device time of each kernel that one call of `fn` launches (µs), by torch.profiler."""
+def launch_times_us(fn, reps: int = 20, attempts: int = 3):
+    """Device time of each kernel that one call of `fn` launches (µs), by
+    torch.profiler; a trace that lists no device time is taken again, up to
+    `attempts` traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for ev in prof.key_averages():
-        total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if total > 0 and ev.count >= reps:
-            times[kernel_name(ev.key)] = round(total / reps, 3)
-    return times or "not measured (the profiler saw no device time)"
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for ev in prof.key_averages():
+            total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            if total > 0 and ev.count >= reps:
+                times[kernel_name(ev.key)] = round(total / reps, 3)
+        if times:
+            return times
+    return "not measured (the profiler saw no device time)"
 
 
 def report(device, d, cam, markers, cuda_lib, dk, rk):
@@ -697,6 +834,8 @@ def report(device, d, cam, markers, cuda_lib, dk, rk):
     for src, name, regs, frame, stores, loads in ptxas_report(cuda_lib):
         print(f"[report] ptxas {src} {name}: {regs} registers, {frame} bytes stack frame, "
               f"{stores} bytes spill stores, {loads} bytes spill loads")
+        if src in ("resample_decode.cu", "monotone_gather.cu"):
+            assert frame == stores == loads == 0, f"{src} {name} uses local memory"
     crop, prm = crop_inputs(d, device)
     gn_args = gn_inputs(d, cam, markers, device)
     print(f"[report] {card_line()}: detect_stats launches (us): "
@@ -794,6 +933,8 @@ def main() -> int:
     if main_run.launches["resample_gather"] == 0:
         print("[replay] no frame resampled (the ESS gate never fired)")
     main_warm = warm_replay("timing")
+    idle = idle_share(device, d, cam, markers)
+    print(f"[idle] {card}: main path, 20 warm frames: {idle}")
 
     # 6. the slice: XLA-style propagation + kernel E, sort-free resampling (kernel F)
     slice_run = counted_replay("slice", SLICE)
@@ -876,7 +1017,7 @@ def main() -> int:
                 "orientation_deg": cold.ori}
 
     print(json.dumps({
-        "replay": dict(summary(main_run, main_warm), card=card),
+        "replay": dict(summary(main_run, main_warm), card=card, idle=idle),
         "slice": dict(summary(slice_run, slice_warm), decoded_frames=slice_run.step.decoded_frames,
                       fallback_frames=slice_run.step.fallback_frames),
         "sharded": dict(summary(sharded_run, sharded_warm), shards=MESH_SHARDS,

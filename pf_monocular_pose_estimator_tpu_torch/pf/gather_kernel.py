@@ -3,11 +3,13 @@ plain PyTorch version.
 
 Ports `pf/pallas_gather.py`: for non-decreasing ancestors, output block i
 of `block` slots only reads the input lanes
-[anc[i * block], anc[last slot]], so one `window`-lane tile at a 128-aligned
-start serves the whole block.  `monotone_gather` checks that every block's
-ancestors fit its window, with the reference wrapper's rule, and returns
-`fallback(bank16, anc)` where one does not, as the reference's `lax.cond`
-does.  Rows 12-15 are the constant rigid bottom row (0, 0, 0, 1).  The
+[anc[i * block], anc[last slot]], so one `window`-lane span at a 128-aligned
+start covers the whole block.  The window is the reference wrapper's
+coverage rule: `monotone_gather` checks that every block's ancestors fit
+it and returns `fallback(bank16, anc)` where one does not, as the
+reference's `lax.cond` does.  The kernel reads each slot's column straight
+from the bank (non-decreasing ancestors coalesce on the card); nothing is
+staged.  Rows 12-15 are the constant rigid bottom row (0, 0, 0, 1).  The
 reference reaches this kernel from no tracker path; neither does the port.
 """
 

@@ -6,12 +6,15 @@ Ports `pf/pallas_resample.py`: `probe_rank` builds the fixed-association
 chunked CDF and counts the stratified draws at or below each entry with
 six threefry probes (a chunk-seam prefix-max keeps the rank monotone), so
 slot t takes ancestor #{j : rank[j] <= t}.  Kernel F decodes that map for
-blocks of `BLOCK` output slots through a window of `WIN_CHUNKS` 128-lane
+blocks of `BLOCK` output slots inside a window of `WIN_CHUNKS` 128-lane
 chunks and gathers all 16 bank rows; a block whose ancestors run past its
 window clears its coverage flag, and `resample_bank` then returns the
 caller's fallback (the sort path) instead, as the reference's `lax.cond`
 does.  The two constants decide when that happens, so they are the
-reference's semantics, not tuning.
+reference's semantics, not tuning.  On the card each decode block counts
+its own window start (above `COUNT_IN_BLOCK_CHUNKS` chunks one launch
+before the decode counts them all), stages the window's rank and reads the
+bank straight from L2.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ from .soa import default_cdf_chunk, hillis_steele
 BLOCK = 1024  # output slots per decode block (reference default)
 WIN_CHUNKS = 12  # 128-lane chunks per window (reference default)
 BIG_RANK = 1 << 23  # rank of lanes past N: above any rank (< 2**22) and any slot
+# Up to this many 128-lane chunks (N <= 131,072) each decode block counts its
+# own window start; above, one launch counts them all first (into a scratch
+# buffer), since every block reading every chunk-last rank grows as N**2.
+COUNT_IN_BLOCK_CHUNKS = 1024
 
 
 def probe_rank(key, weights: torch.Tensor):
@@ -101,13 +108,17 @@ def decode(rank: torch.Tensor, bank16: torch.Tensor, block: int = BLOCK,
     lib = cuda_lib.library()
     out = torch.empty_like(bank16)
     ok = torch.empty(-(-n // block), dtype=torch.int32, device=bank16.device)
+    starts = torch.empty_like(ok) if -(-n // 128) > COUNT_IN_BLOCK_CHUNKS else None
     code = lib.pfmpe_resample_decode(rank.data_ptr(), bank16.data_ptr(), n, block, win_chunks,
+                                     None if starts is None else starts.data_ptr(),
                                      out.data_ptr(), ok.data_ptr(), cuda_lib.stream_ptr(bank16))
     decode.launches += 1
     cuda_lib.check(code, "pfmpe_resample_decode")
     return out, ok
 
 
+# wrapper calls that launched kernel F: one a call, also above
+# COUNT_IN_BLOCK_CHUNKS, where a call is two launches (the starts, then the decode)
 decode.launches = 0
 
 

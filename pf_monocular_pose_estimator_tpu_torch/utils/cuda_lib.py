@@ -25,7 +25,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("detect.cu", "pf_step.cu", "pf_weight.cu", "resample_gather.cu", "resample_decode.cu",
            "monotone_gather.cu", "ring_gather.cu", "gn_refine.cu")
-HEADERS = ("pf_common.cuh", "window.cuh")
+HEADERS = ("pf_common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -39,7 +39,7 @@ _SIGNATURES = {
     "pfmpe_pf_step": (_P, _P, _I, _I, _I, _U, _U, _U, _U, _I, _I, _P, _P, _P, _P, _P),
     "pfmpe_pf_weight": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "pfmpe_resample_gather": (_P, _P, _I, _P, _P),
-    "pfmpe_resample_decode": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "pfmpe_resample_decode": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "pfmpe_monotone_gather": (_P, _P, _I, _I, _I, _P, _P, _P),
     "pfmpe_ring_gather": (_P, _P, _P, _I, _P, _I, _P, _P),
     "pfmpe_gn_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),

@@ -218,6 +218,86 @@ def test_monotone_gather_matches_plain(dev, spread):
     assert bool(ok.all()) != spread
 
 
+def _hand_rank(case, n):
+    """Hand-made ranks with rank[n - 1] = n, as in tests/test_torch_resample.py:
+    every slot on one ancestor; a block's ancestors over more chunks than its
+    window; one chunk-last rank stepping down below a block start that the
+    chunks before it exceed (a count and a search of the chunk-last ranks
+    then disagree, and the count is the reference's)."""
+    j = torch.arange(n)
+    if case == "one_chunk":
+        return torch.where(j < 3000, 0, n).int()
+    if case == "coarse_past_window":
+        rank = j // 16
+        rank[-1] = n
+        return rank.int()
+    rank = j + 1
+    rank[20 * 128 + 127] = 2000
+    return rank.int()
+
+
+@pytest.mark.parametrize("case,n,block,win_chunks", [
+    ("covered", 1536, 1024, 12), ("covered", 6001, 1024, 12), ("spread", 4097, 1024, 12),
+    ("covered", 1_000_000, 1024, 12), ("spread", 1_000_000, 1024, 12),
+    ("one_chunk", 6001, 1024, 12), ("coarse_past_window", 6001, 1024, 12),
+    ("step_down", 6001, 1024, 12), ("covered", 6001, 1000, 12), ("spread", 20_000, 128, 12),
+    ("covered", 20_000, 1024, 100), ("spread", 1_000_000, 128, 12),
+    ("covered", 1_000_000, 100, 12)])
+def test_resample_decode_edge_cases_exact(dev, case, n, block, win_chunks):
+    """Kernel F against its plain version on every block, covered or not: N
+    equal to the window, N not a multiple of 128 or of 4, a last block of one
+    slot, 1,000,000 lanes, hand-made ranks, logical blocks that are not a
+    multiple of the CUDA block, and a window above 48 KB of rank.  Up to
+    131,072 lanes each decode block counts its window start; above, one
+    launch counts them all (in two passes of its histogram at block 100)."""
+    gen = torch.Generator().manual_seed(n)
+    bank = torch.randn(16, n, generator=gen).to(dev)
+    if case in ("covered", "spread"):
+        if case == "covered":
+            w = torch.softmax(0.8 * torch.randn(n, generator=gen), 0)
+        else:
+            lane = torch.arange(n)
+            w = torch.where(lane < n // 2, (lane % 8 == 0).float(), torch.ones(n))
+            w = w / w.sum()
+        rank = fk.probe_rank(prng.prng_key(4), w.to(dev))[0]
+    else:
+        rank = _hand_rank(case, n).to(dev)
+    out, ok = fk.decode(rank, bank, block, win_chunks)
+    out_p, ok_p = fk.decode_plain(rank, bank, block, win_chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p) and torch.equal(out, out_p)
+    if case in ("spread", "coarse_past_window") and block == 1024:
+        assert not bool(ok.all())
+    if case == "step_down":
+        last = rank[127::128].long()
+        t0 = torch.arange(ok.numel(), device=dev) * block
+        count = (last[None, :] <= t0[:, None]).sum(1)
+        assert bool((count != torch.searchsorted(last, t0, right=True)).any())
+
+
+@pytest.mark.parametrize("n,block,window,kind", [
+    (2048, 512, 2048, "uniform"), (6001, 512, 2048, "uniform"), (4097, 512, 2048, "skew"),
+    (1_000_000, 512, 2048, "uniform"), (6001, 128, 2048, "uniform"), (6001, 1024, 2048, "skew"),
+    (6001, 512, 1024, "uniform")])
+def test_monotone_gather_edge_cases_exact(dev, n, block, window, kind):
+    """Kernel G against its plain version on every block, covered or not
+    (uncovered blocks read their window's nearest edge): N equal to the
+    window, N not a multiple of 128 or of 4, a last block of one slot,
+    1,000,000 lanes, other blocks and a narrower window."""
+    rng = np.random.default_rng(n + block + window)
+    anc = np.sort(rng.integers(0, n, n))
+    if kind == "skew":  # the middle third crowds onto a few ancestors
+        anc[n // 3: 2 * n // 3] = np.sort(rng.integers(0, 4, 2 * n // 3 - n // 3)) * (n // 4)
+        anc = np.sort(anc)
+    bank = torch.randn(16, n, generator=torch.Generator().manual_seed(n)).to(dev)
+    anc = torch.from_numpy(anc).to(dev)
+    out, ok = gk.windowed_gather(bank, anc, block, window)
+    out_p, ok_p = gk.monotone_gather_plain(bank, anc, block, window)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p) and torch.equal(out, out_p)
+    assert bool(ok.all()) == (kind == "uniform" and n % 128 == 0)
+
+
 def test_resample_gather_exact(dev):
     rng = np.random.default_rng(4)
     bank, prm = _pf_inputs(dev, 10_000, rng)

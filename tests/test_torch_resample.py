@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from pf_monocular_pose_estimator_tpu.pf import pallas_resample
 from pf_monocular_pose_estimator_tpu.pf.pallas_gather import monotone_gather as ref_monotone_gather
 from pf_monocular_pose_estimator_tpu.pf.pallas_resample import probe_rank as ref_probe_rank
 from pf_monocular_pose_estimator_tpu.pf.pallas_resample import resample_bank_pallas
@@ -130,6 +131,101 @@ def test_monotone_gather_matches_pallas(case):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     _, ok = gather_kernel.monotone_gather_plain(t(bank), t(anc).long(), window=window)
     assert bool(ok.all()) == (case != "spread") == (not calls)
+
+
+def hand_rank(case, n):
+    """Hand-made ranks for the decode, each with rank[n - 1] = n as a probe
+    rank has: 'one_chunk' sends every slot to one ancestor; 'coarse_past_window'
+    spreads a block's ancestors over more chunks than its window holds;
+    'step_down' lowers one chunk-last rank below a block start that the
+    chunks before it exceed, so a count and a search of the chunk-last
+    ranks disagree (the count is the reference's window start)."""
+    j = np.arange(n)
+    if case == "one_chunk":
+        rank = np.where(j < 3000, 0, n)
+    elif case == "coarse_past_window":
+        rank = j // 16
+        rank[-1] = n
+    else:
+        rank = j + 1
+        rank[20 * 128 + 127] = 2000
+    return rank.astype(np.int32)
+
+
+def count_and_search_differ(rank, block=resample_kernel.BLOCK):
+    """Whether some block's window start, #{chunk-last ranks <= its first
+    slot}, differs from a binary search of the chunk-last ranks."""
+    n = rank.shape[0]
+    padded = np.full(-(-n // 128) * 128, resample_kernel.BIG_RANK, np.int64)
+    padded[:n] = rank
+    last = padded.reshape(-1, 128)[:, -1]
+    t0 = np.arange(-(-n // block)) * block
+    count = (last[None, :] <= t0[:, None]).sum(1)
+    return bool((count != np.searchsorted(last, t0, side="right")).any())
+
+
+@pytest.mark.parametrize("case,n", [("covered", 1536), ("covered", 6001), ("spread", 4097),
+                                    ("one_chunk", 6001), ("coarse_past_window", 6001),
+                                    ("step_down", 6001)])
+def test_decode_plain_matches_pallas_every_block(case, n, monkeypatch):
+    """Kernel F's plain version against `_decode_pallas` (interpret) on every
+    block, covered or not, as `resample_bank_pallas` calls it (its window
+    starts and boundary ranks): N equal to the window, N not a multiple of
+    128 or of 4, a last block of one slot, and the hand-made ranks."""
+    seen = {}
+    decode_ref = pallas_resample._decode_pallas
+
+    def recorded(rank_pad_f32, *args, **kwargs):
+        seen["rank"] = np.asarray(rank_pad_f32)[:n].astype(np.int32)
+        seen["out"], seen["ok"] = decode_ref(rank_pad_f32, *args, **kwargs)
+        return seen["out"], seen["ok"]
+
+    monkeypatch.setattr(pallas_resample, "_decode_pallas", recorded)
+    if case not in ("covered", "spread"):
+        rank = jnp.asarray(hand_rank(case, n))
+        monkeypatch.setattr(pallas_resample, "probe_rank",
+                            lambda key, w: (rank, jnp.diff(rank, prepend=0), jnp.int32(0)))
+    kw, kb, kr = jax.random.split(jax.random.PRNGKey(n), 3)
+    w = _profile(case if case == "spread" else "covered", n, kw)
+    bank = jax.random.normal(kb, (16, n), jnp.float32)
+    resample_bank_pallas(kr, w, bank, _mark_ref, interpret=True)
+    out, ok = resample_kernel.decode_plain(t(seen["rank"]), t(bank))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(seen["ok"]).reshape(-1))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(seen["out"]))
+    if case == "step_down":
+        assert count_and_search_differ(seen["rank"])
+    if case in ("spread", "coarse_past_window"):
+        assert not bool(ok.all())
+
+
+@pytest.mark.parametrize("n,block,window,kind", [(2048, 512, 2048, "uniform"),
+                                                 (6001, 512, 2048, "uniform"),
+                                                 (4097, 512, 2048, "skew"),
+                                                 (6001, 128, 2048, "uniform"),
+                                                 (6001, 1024, 2048, "skew"),
+                                                 (6001, 512, 1024, "uniform")])
+def test_monotone_gather_matches_pallas_edge_cases(n, block, window, kind):
+    """Kernel G's plain version against `monotone_gather` (interpret) with a
+    fallback on each side that marks its output, so equal outputs mean the
+    same branch: N equal to the window, N not a multiple of 128 or of 4, a
+    last block of one slot, other blocks and a narrower window."""
+    rng = np.random.default_rng(n + block + window)
+    anc = np.sort(rng.integers(0, n, n))
+    if kind == "skew":  # the middle third crowds onto a few ancestors
+        anc[n // 3: 2 * n // 3] = np.sort(rng.integers(0, 4, 2 * n // 3 - n // 3)) * (n // 4)
+        anc = np.sort(anc)
+    bank = _bank(n, 6)
+    want = ref_monotone_gather(jnp.asarray(bank), jnp.asarray(anc.astype(np.int32)),
+                               lambda b, a: jnp.full_like(b, -123.0), block=block, window=window,
+                               interpret=True)
+    got = gather_kernel.monotone_gather(t(bank), t(anc), lambda b, a: torch.full_like(b, -123.0),
+                                        block=block, window=window)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    out, ok = gather_kernel.monotone_gather_plain(t(bank), t(anc), block, window)
+    # the reference's rule never covers the last N mod 128 lanes
+    assert bool(ok.all()) == (kind == "uniform" and n % 128 == 0)
+    assert torch.equal(out[:, ok.repeat_interleave(block)[:n] == 1],
+                       t(bank)[:, t(anc)][:, ok.repeat_interleave(block)[:n] == 1])
 
 
 @pytest.mark.parametrize("kind", ["sparse", "peaked", "zeros"])
