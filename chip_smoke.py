@@ -42,8 +42,10 @@ Phases (any failure raises and exits non-zero):
 Phase 3 also holds F and G to their plain versions at 1,000,000 lanes and
 times F with the other placement of its window-start count.  After
 phase 3 it reports the `-Xptxas -v` line (registers, stack frame, spills)
-of every kernel (F and G must use no local memory), and the device time of
-each launch of kernels A, D, F and G by torch.profiler.  After phase 5 it
+of every kernel (E, F and G must use no local memory, B none beyond the
+math library's 32-byte sincosf frame; B's and E's registers at M = 5), and
+the device time of each launch of kernels A, B, D, E, F and G by
+torch.profiler.  After phase 5 it
 gives the main path's device time against its wall time over 20 warm
 frames (torch.profiler), whence the card's idle share.  To compare with
 another commit on one card, copy this script into a checkout of it and
@@ -95,11 +97,17 @@ def bound(n_bytes: float, n_ops: float):
 
 
 def weight_ops(m: int, k: int) -> int:
-    """Operations of the greedy weight of one particle: projection (26 a
-    marker), the M x K volume (7 a cell), then M steps of a min, a
-    first-index and a retire sweep over the volume (3 M K), the reuse and
-    used updates (2 K), the downgrade sum (2 M) and 9 scalar operations."""
-    return 26 * m + 7 * m * k + m * (3 * m * k + 2 * k + 2 * m + 9)
+    """Operations the greedy weight of one particle needs:
+
+        26 M + 9 M K + M (2 M + 12)
+
+    the projection (26 a marker), the M x K volume (7 a cell) with each
+    marker row's first minimum (a compare and an index select a cell), then
+    M greedy steps, each a first minimum over the M row pairs (2 M) and 12
+    scalar operations (distance, score, reuse, penalties, the retire).  A
+    row that is not retired never changes, so no step needs the volume
+    again (pf_common.cuh)."""
+    return 26 * m + 9 * m * k + m * (2 * m + 12)
 
 
 # propagation of one particle: two 4x4 composes (224), six threefry draws
@@ -205,10 +213,41 @@ def gn_inputs(d, cam, markers, device, det_xy=None, seed=1):
     return (scal_d, poses0.reshape(b, 16).contiguous(), mark, du, dv, cmask.float())
 
 
+def pf_inputs(d, cam, markers, device):
+    """Kernel B's main-path input: N = 100,000 poses scattered 0.01 around
+    golden frame 10's, a step, the five projected markers plus 0.3 px of
+    noise among 16 detection slots -> (bank, parameters, keys, detections)."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3, project
+    from pf_monocular_pose_estimator_tpu_torch.pf import step_kernel as sk
+    from pf_monocular_pose_estimator_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(0)
+    n = N_PARTICLES
+    gt = torch.from_numpy(d["poses"][10]).to(device)
+    tw = torch.from_numpy(rng.normal(0.0, 0.01, (n, 6)).astype(np.float32)).to(device)
+    bank = (exp_se3(tw) @ gt).reshape(n, 16).T.contiguous()
+    uv = project(cam, gt, markers)
+    det_xy = torch.zeros((16, 2), device=device)
+    det_xy[:5] = uv + torch.from_numpy(rng.normal(0, 0.3, (5, 2)).astype(np.float32)).to(device)
+    det_mask = torch.zeros(16, dtype=torch.bool, device=device)
+    det_mask[:5] = True
+    eye = torch.eye(4, device=device)
+    step = exp_se3(torch.tensor([0.002, -0.001, 0.003, 0.01, 0.0, -0.01], device=device))
+    lo = torch.tensor([-0.004] * 3 + [-0.006] * 3, device=device)
+    scal = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, torch.tensor(10.0, device=device),
+                        torch.tensor(5.0, device=device), torch.tensor(5.0, device=device),
+                        torch.tensor(0.0, device=device)])
+    prm_b = sk.pack_params(eye, step, gt, gt @ step, lo, -lo, scal, markers,
+                           torch.ones(5, dtype=torch.bool, device=device), det_xy, det_mask,
+                           torch.zeros(5, dtype=torch.bool, device=device))
+    k_rot, k_trans = prng.split(prng.prng_key(7))
+    return bank, prm_b, (*k_rot, *k_trans), det_xy
+
+
 def check_kernels(device, d, cam, markers):
     """Phase 3: kernel vs plain at main-path shapes; returns the table rows."""
     import torch
-    from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3, project
     from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
     from pf_monocular_pose_estimator_tpu_torch.pf import gather_kernel as gk
     from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel as rk
@@ -218,7 +257,6 @@ def check_kernels(device, d, cam, markers):
     from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
     from pf_monocular_pose_estimator_tpu_torch.utils import prng
 
-    rng = np.random.default_rng(0)
     rows = []
 
     # A: threshold_blur on a full 752x480 frame (the init / full-frame path)
@@ -269,38 +307,20 @@ def check_kernels(device, d, cam, markers):
 
     # B: fused propagate + weight at N = 100,000, M = 5, K = 16
     n = N_PARTICLES
-    gt = torch.from_numpy(d["poses"][10]).to(device)
-    tw = torch.from_numpy(rng.normal(0.0, 0.01, (n, 6)).astype(np.float32)).to(device)
-    bank = (exp_se3(tw) @ gt).reshape(n, 16).T.contiguous()
-    uv = project(cam, gt, markers)
-    det_xy = torch.zeros((16, 2), device=device)
-    det_xy[:5] = uv + torch.from_numpy(rng.normal(0, 0.3, (5, 2)).astype(np.float32)).to(device)
-    det_mask = torch.zeros(16, dtype=torch.bool, device=device)
-    det_mask[:5] = True
-    eye = torch.eye(4, device=device)
-    step = exp_se3(torch.tensor([0.002, -0.001, 0.003, 0.01, 0.0, -0.01], device=device))
-    lo = torch.tensor([-0.004] * 3 + [-0.006] * 3, device=device)
-    scal = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, torch.tensor(10.0, device=device),
-                        torch.tensor(5.0, device=device), torch.tensor(5.0, device=device),
-                        torch.tensor(0.0, device=device)])
-    prm_b = sk.pack_params(eye, step, gt, gt @ step, lo, -lo, scal, markers,
-                           torch.ones(5, dtype=torch.bool, device=device), det_xy, det_mask,
-                           torch.zeros(5, dtype=torch.bool, device=device))
-    k_rot, k_trans = prng.split(prng.prng_key(7))
-    keys = (*k_rot, *k_trans)
+    bank, prm_b, keys, det_xy = pf_inputs(d, cam, markers, device)
     bank_k, w_k = sk.pf_step(bank, prm_b, keys, 5, 16)
     bank_p, w_p = sk.pf_step_plain(bank, prm_b, keys, 5, 16)
     torch.cuda.synchronize()
     ulps = (bank_k.view(torch.int32).long() - bank_p.view(torch.int32).long()).abs()
     ulps = torch.where((bank_k == 0) & (bank_p == 0), torch.zeros_like(ulps), ulps)
     max_ulp = int(ulps.max())
-    same_w = float((w_k == w_p).float().mean())
+    same_w = int((w_k == w_p).sum())
     mism = torch.nonzero(w_k != w_p).flatten()[:10].tolist()
     err_b = float((w_k - w_p).abs().max())
-    print(f"[kernels] pf_step N={n}: bank max {max_ulp} ulp, weights equal on "
-          f"{same_w * 100:.4f}% of lanes (max abs err {err_b}); mismatching lanes {mism}")
+    print(f"[kernels] pf_step N={n}: bank max {max_ulp} ulp, weights equal on {same_w} of {n} "
+          f"lanes (max abs err {err_b}); mismatching lanes {mism}")
     assert max_ulp <= 4, f"pf_step bank differs by {max_ulp} ulp"
-    assert same_w >= 0.9999, f"pf_step weights equal on only {same_w:.6f} of lanes"
+    assert same_w == n, f"pf_step weights equal on only {same_w} of {n} lanes"
     assert float(w_k.max()) > 20.0, "pf_step: no particle matched the detections"
     # read 16 rows, write 16 rows and the weight
     b_ms, b_by = bound(n * (64 + 64 + 4), n * (PROPAGATE_OPS + weight_ops(5, 16)))
@@ -332,10 +352,10 @@ def check_kernels(device, d, cam, markers):
         "pf_step's pairs variant changed the bank or the weights"
     assert torch.equal(got[2], want[2]), "pf_step pairs differ from plain"
     assert torch.equal(got[3], want[3]), "pf_step n_corr differs from plain"
-    same_wp = float((got[1] == want[1]).float().mean())
-    assert same_wp >= 0.9999, f"pf_step pairs variant: weights equal on only {same_wp:.6f}"
-    print(f"[kernels] pf_step pairs N={n}: pairs and n_corr exact, weights equal on "
-          f"{same_wp * 100:.4f}% of lanes, bank and weights equal to the weights-only pass")
+    same_wp = int((got[1] == want[1]).sum())
+    assert same_wp == n, f"pf_step pairs variant: weights equal on only {same_wp} of {n} lanes"
+    print(f"[kernels] pf_step pairs N={n}: pairs and n_corr exact, weights equal on {same_wp} of "
+          f"{n} lanes, bank and weights equal to the weights-only pass")
     b_ms, b_by = bound(n * (64 + 64 + 4 + 4 * 10 + 4), n * (PROPAGATE_OPS + weight_ops(5, 16)))
     rows.append(dict(name="pf_step_pairs", route="cuda",
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/pf_step.cu",
@@ -353,13 +373,13 @@ def check_kernels(device, d, cam, markers):
     got = wk.weight(bank_k, wprm, 5, 16)
     want = wk.weight_plain(bank_k, wprm, 5, 16)
     torch.cuda.synchronize()
-    same_we = float((got[0] == want[0]).float().mean())
+    same_we = int((got[0] == want[0]).sum())
     assert torch.equal(got[1], want[1]), "pf_weight pairs differ from plain"
     assert torch.equal(got[2], want[2]), "pf_weight n_corr differs from plain"
-    assert same_we >= 0.9999, f"pf_weight weights equal on only {same_we:.6f} of lanes"
+    assert same_we == n, f"pf_weight weights equal on only {same_we} of {n} lanes"
     assert torch.equal(got[0], w_k), "pf_weight differs from kernel B's weight of the same bank"
-    print(f"[kernels] pf_weight N={n}: pairs and n_corr exact, weights equal on "
-          f"{same_we * 100:.4f}% of lanes; {int((got[2] == 5).sum())} lanes matched 5 markers")
+    print(f"[kernels] pf_weight N={n}: pairs and n_corr exact, weights equal on {same_we} of {n} "
+          f"lanes; {int((got[2] == 5).sum())} lanes matched 5 markers")
     b_ms, b_by = bound(n * (48 + 4 + 4 * 10 + 4), n * weight_ops(5, 16))
     rows.append(dict(name="pf_weight", route="cuda",
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/pf_weight.cu",
@@ -522,6 +542,102 @@ def check_windowed_large(device):
             print(f"[report] {card_line()}: monotone_gather launches N={n} (us): "
                   f"{launch_times_us(lambda: gk.windowed_gather(bank, anc))}")
             decode_count_placements(rank, bank)
+
+
+GREEDY_ALTERNATIVES = {
+    "256 threads a block": {"pf_common.cuh": [("kPfThreads = 128;", "kPfThreads = 256;")]},
+    "parameters through L1": {
+        "pf_step.cu": [("  stage(sprm, prm, 76 + n_weight_params(M, K));\n", ""),
+                       ("const float* p = sprm;", "const float* p = prm;")],
+        "pf_weight.cu": [("  stage(sprm, wprm, n_weight_params(M, K));\n", ""),
+                         ("const float* p = sprm;", "const float* p = wprm;")]},
+    "sinf and cosf": {"pf_step.cu": [(f"sincosf(nz[{i}], &s{c}, &c{c});",
+                                      f"s{c} = sinf(nz[{i}]); c{c} = cosf(nz[{i}]);")
+                                     for i, c in enumerate("abc")]},
+}
+
+
+def greedy_alternatives(d, cam, markers, device):
+    """Kernels B and E as built against each alternative of their constants
+    (GREEDY_ALTERNATIVES: the block size, the parameters' path, the trig
+    calls), each built from csrc/ with one substitution: outputs equal to the
+    built kernel's bit for bit, device times (CUDA graphs of 20 calls) in
+    turns, twice."""
+    import ctypes
+    import tempfile
+
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.pf import step_kernel as sk
+    from pf_monocular_pose_estimator_tpu_torch.utils import cuda_lib
+
+    csrc = ROOT / "pf_monocular_pose_estimator_tpu_torch" / "csrc"
+    names = ("pf_common.cuh", "pf_step.cu", "pf_weight.cu")
+    bank, prm, keys, _ = pf_inputs(d, cam, markers, device)
+    n = bank.shape[1]
+    wprm = prm[76:].contiguous()
+    bank_e = sk.pf_step(bank, prm, keys, 5, 16)[0]
+
+    def calls(lib):
+        def b(pairs=False):
+            out, w = torch.empty_like(bank), torch.empty(n, device=device)
+            pr = torch.empty((5, 2, n), dtype=torch.int32, device=device) if pairs else None
+            nc = torch.empty(n, dtype=torch.int32, device=device) if pairs else None
+            cuda_lib.check(lib.pfmpe_pf_step(
+                bank.data_ptr(), prm.data_ptr(), n, 5, 16, *(int(x) for x in keys), 0, n,
+                out.data_ptr(), w.data_ptr(), pr.data_ptr() if pairs else None,
+                nc.data_ptr() if pairs else None, cuda_lib.stream_ptr(bank)), "pf_step")
+            return (out, w, pr, nc) if pairs else (out, w)
+
+        def e():
+            w = torch.empty(n, device=device)
+            pr = torch.empty((5, 2, n), dtype=torch.int32, device=device)
+            nc = torch.empty(n, dtype=torch.int32, device=device)
+            cuda_lib.check(lib.pfmpe_pf_weight(bank_e.data_ptr(), wprm.data_ptr(), n, 5, 16,
+                                               w.data_ptr(), pr.data_ptr(), nc.data_ptr(),
+                                               cuda_lib.stream_ptr(bank)), "pf_weight")
+            return w, pr, nc
+        return {"B": b, "B pairs": lambda: b(True), "E": e}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for alt, subs in GREEDY_ALTERNATIVES.items():
+            texts = {name: (csrc / name).read_text() for name in names}
+            if not all(old in texts[name] for name in subs for old, _ in subs[name]):
+                print(f"[alternatives] {alt}: not applicable to this tree")
+                continue
+            out = Path(tmp) / str(len(procs))
+            out.mkdir()
+            for name, text in texts.items():
+                for old, new in subs.get(name, []):
+                    text = text.replace(old, new)
+                (out / name).write_text(text)
+            procs[alt] = (out, subprocess.Popen(
+                [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(out / "lib.so"),
+                 str(out / "pf_step.cu"), str(out / "pf_weight.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        fns = {"as built": calls(cuda_lib.library())}
+        for alt, (out, proc) in procs.items():
+            _, err = proc.communicate()
+            assert proc.returncode == 0, f"alternative {alt} failed to build:\n{err}"
+            lib = ctypes.CDLL(str(out / "lib.so"))
+            for name in ("pfmpe_pf_step", "pfmpe_pf_weight"):
+                getattr(lib, name).argtypes = list(cuda_lib._SIGNATURES[name])
+                getattr(lib, name).restype = ctypes.c_int
+            fns[alt] = calls(lib)
+        want = {k: f() for k, f in fns["as built"].items()}
+        for alt, f in fns.items():
+            for k in want:
+                got = f[k]()
+                torch.cuda.synchronize()
+                assert all(torch.equal(g, w) for g, w in zip(got, want[k])), \
+                    f"alternative {alt}: {k} differs from the built kernel"
+        times = {alt: {k: [] for k in want} for alt in fns}
+        for _ in range(2):
+            for alt, f in fns.items():
+                for k in want:
+                    times[alt][k].append(round(device_time_ms(f[k]) * 1e3, 2))
+    print(f"[alternatives] {card_line()}: kernels B and E at N={n} on the card alone (us), "
+          f"outputs equal to the built kernel's: {times}")
 
 
 def decode_count_placements(rank, bank):
@@ -828,20 +944,36 @@ def launch_times_us(fn, reps: int = 20, attempts: int = 3):
     return "not measured (the profiler saw no device time)"
 
 
-def report(device, d, cam, markers, cuda_lib, dk, rk):
-    """The build report of every kernel and the device time of each launch of
-    kernels A and D on their main-path inputs."""
+def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk):
+    """The build report of every kernel (F, G and E must use no local memory,
+    B none beyond the math library's 32-byte sincosf frame; the registers of
+    B and E at the main path's M = 5) and the device time of each launch of
+    kernels A, B, D and E on their main-path inputs."""
+    greedy_regs = {}
     for src, name, regs, frame, stores, loads in ptxas_report(cuda_lib):
         print(f"[report] ptxas {src} {name}: {regs} registers, {frame} bytes stack frame, "
               f"{stores} bytes spill stores, {loads} bytes spill loads")
-        if src in ("resample_decode.cu", "monotone_gather.cu"):
+        if src in ("resample_decode.cu", "monotone_gather.cu", "pf_weight.cu"):
             assert frame == stores == loads == 0, f"{src} {name} uses local memory"
+        if src == "pf_step.cu":
+            assert frame <= 32 and stores == loads == 0, f"{src} {name} uses local memory"
+        if src in ("pf_step.cu", "pf_weight.cu") and "<5, 16" in name:
+            greedy_regs[name] = regs
+    print(f"[report] {card_line()}: registers of kernels B and E at M = 5: {greedy_regs}")
     crop, prm = crop_inputs(d, device)
     gn_args = gn_inputs(d, cam, markers, device)
+    bank, prm_b, keys, _ = pf_inputs(d, cam, markers, device)
+    bank_e = sk.pf_step(bank, prm_b, keys, 5, 16)[0]
+    wprm = prm_b[76:].contiguous()
     print(f"[report] {card_line()}: detect_stats launches (us): "
           f"{launch_times_us(lambda: dk.detect_stats(crop, prm, 5, True, 12, 16))}")
     print(f"[report] {card_line()}: gn_refine launches (us): "
           f"{launch_times_us(lambda: rk.gn_refine(*gn_args, 25, 1e-4))}")
+    print(f"[report] {card_line()}: pf_step launches N={N_PARTICLES} (us): "
+          f"{launch_times_us(lambda: sk.pf_step(bank, prm_b, keys, 5, 16))}, with pairs "
+          f"{launch_times_us(lambda: sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True))}")
+    print(f"[report] {card_line()}: pf_weight launches N={N_PARTICLES} (us): "
+          f"{launch_times_us(lambda: wk.weight(bank_e, wprm, 5, 16))}")
 
 
 def accuracy(est, gt):
@@ -882,7 +1014,8 @@ def main() -> int:
     d, cam, markers = load_golden(device)
     rows = check_kernels(device, d, cam, markers)
     torch.cuda.synchronize()
-    report(device, d, cam, markers, cuda_lib, dk, rk)
+    report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk)
+    greedy_alternatives(d, cam, markers, device)
 
     # launch counters: (wrapper, attribute) per kernel row
     counters = {"threshold_blur": (dk.threshold_blur, "launches"),

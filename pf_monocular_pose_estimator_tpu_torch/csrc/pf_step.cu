@@ -19,14 +19,17 @@
 //
 // What bounds it on Hopper: one thread per particle reads 64 B and writes
 // 68 B (+44 B of pairs and count with WANT_PAIRS; 13.2 MB / 17.6 MB for
-// N = 100,000, ~4-5 us of HBM time at 3.35 TB/s); the work is ~3.2 k
-// operations per particle (threefry hashing, the compose, the 80-cell
-// volume and five greedy sweeps over it), ~5 us at the fp32 peak, so it is
-// compute- and latency-bound.  The design keeps the whole M x K volume and
-// the greedy state in registers (M and K are template parameters, every
-// loop unrolls) and reads the bank row by row so neighbouring threads touch
-// neighbouring addresses.  Built with --fmad=false and precise sinf/cosf so
-// every expression rounds as the reference writes it.
+// N = 100,000, ~4-5 us of HBM time at 3.35 TB/s); the work is threefry
+// hashing, the compose and the greedy weight (chip_smoke.py's
+// PROPAGATE_OPS and weight_ops), about as long at the fp32 peak, so it is
+// compute- and latency-bound.  The design keeps the greedy state in
+// registers as M row minima (pf_common.cuh: the volume is never held, a
+// greedy step is O(M)), stages the launch's parameters once a block in
+// shared memory and reads the bank row by row so neighbouring threads touch
+// neighbouring addresses.  Built with --fmad=false and precise sincosf so every
+// expression rounds as the reference writes it; the 32-byte stack frame
+// ptxas reports is the math library's reduction of huge angles (local
+// memory only on that path).
 
 #include "pf_common.cuh"
 
@@ -34,19 +37,19 @@ namespace {
 
 // params: lr[32] | pin[32] | prop[12] | scal[8] | mark[4M] | dets[3K] | downg[M]
 template <int M, int K, bool WANT_PAIRS>
-__global__ void __launch_bounds__(256) pf_step_kernel(const float* __restrict__ bank,
-                                                      const float* __restrict__ prm, int n,
-                                                      uint32_t kr0, uint32_t kr1, uint32_t kt0,
-                                                      uint32_t kt1, int lane_offset, int n_total,
-                                                      float* __restrict__ out,
-                                                      float* __restrict__ wout,
-                                                      int* __restrict__ pairs,
-                                                      int* __restrict__ ncorr) {
+__global__ void __launch_bounds__(kPfThreads) pf_step_kernel(
+    const float* __restrict__ bank, const float* __restrict__ prm, int n, uint32_t kr0,
+    uint32_t kr1, uint32_t kt0, uint32_t kt1, int lane_offset, int n_total,
+    float* __restrict__ out, float* __restrict__ wout, int* __restrict__ pairs,
+    int* __restrict__ ncorr) {
+  __shared__ float sprm[76 + n_weight_params(M, K)];
+  stage(sprm, prm, 76 + n_weight_params(M, K));
+  const float* p = sprm;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const float* lr = prm;
-  const float* pin = prm + 32;
-  const float* prop = prm + 64;
+  const float* lr = p;
+  const float* pin = p + 32;
+  const float* prop = p + 64;
 
   float t[16];
 #pragma unroll
@@ -89,9 +92,11 @@ __global__ void __launch_bounds__(256) pf_step_kernel(const float* __restrict__ 
     const float lo = prop[2 * row], hi = prop[2 * row + 1];
     nz[row] = fmaxf(lo, u * (hi - lo) + lo);
   }
-  const float ca = cosf(nz[0]), sa = sinf(nz[0]);
-  const float cb = cosf(nz[1]), sb = sinf(nz[1]);
-  const float cc = cosf(nz[2]), sc = sinf(nz[2]);
+  // sincosf equals sinf and cosf bit for bit (tests/test_torch_kernels_cuda.py)
+  float sa, ca, sb, cb, sc, cc;
+  sincosf(nz[0], &sa, &ca);
+  sincosf(nz[1], &sb, &cb);
+  sincosf(nz[2], &sc, &cc);
   const float rn[9] = {
       cc * cb,
       cc * sb * sa - sc * ca,
@@ -127,16 +132,15 @@ __global__ void __launch_bounds__(256) pf_step_kernel(const float* __restrict__ 
     }
   }
 
-  wout[lane] = greedy_weight<M, K, WANT_PAIRS>(rows, prm + 76, lane, n, pairs, ncorr);
+  wout[lane] = greedy_weight<M, K, WANT_PAIRS>(rows, p + 76, lane, n, pairs, ncorr);
 }
 
 template <int M, bool WANT_PAIRS>
 cudaError_t launch_m(const float* bank, const float* prm, int n, const uint32_t* keys,
                      int lane_offset, int n_total, float* out, float* w, int* pairs, int* ncorr,
                      cudaStream_t st) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  pf_step_kernel<M, 16, WANT_PAIRS><<<blocks, threads, 0, st>>>(
+  const int blocks = (n + kPfThreads - 1) / kPfThreads;
+  pf_step_kernel<M, 16, WANT_PAIRS><<<blocks, kPfThreads, 0, st>>>(
       bank, prm, n, keys[0], keys[1], keys[2], keys[3], lane_offset, n_total, out, w, pairs,
       ncorr);
   return cudaGetLastError();

@@ -13,12 +13,14 @@
 //
 // What bounds it on Hopper: one thread per particle reads 12 rows (48 B) and
 // writes 48 B (weight, 2M = 10 pair rows, count): 9.6 MB at N = 100,000,
-// ~2.9 us at 3.35 TB/s.  The work is ~2.1 k operations per particle (the
-// 80-cell volume and five greedy sweeps over it), ~3.2 us at the 67 TFLOP/s
-// fp32 peak, so operations set the bound by a little.  The TPU kernel staged
-// the volume in VMEM scratch; here the whole volume and the greedy state
-// stay in registers (pf_common.cuh), nothing is staged, and the row-wise
-// bank reads and pair writes coalesce.  Built with --fmad=false.
+// ~2.9 us at 3.35 TB/s.  The work these inputs need is the projection, the
+// 80-cell volume with its row minima and five greedy steps over five row
+// pairs (chip_smoke.py's weight_ops), about as long at the 67 TFLOP/s fp32
+// peak.  The TPU kernel staged the volume in VMEM scratch and swept it M
+// times; here each row keeps its first minimum while the volume is built
+// (pf_common.cuh), so nothing of the volume is held, the parameters are
+// staged once a block in shared memory, and the row-wise bank reads and
+// pair writes coalesce.  Built with --fmad=false.
 
 #include "pf_common.cuh"
 
@@ -26,25 +28,27 @@ namespace {
 
 // wprm: scal[8] | mark[4M] | dets[3K] | downg[M] (pf_common.cuh)
 template <int M, int K>
-__global__ void __launch_bounds__(256) pf_weight_kernel(const float* __restrict__ bank,
-                                                        const float* __restrict__ wprm, int n,
-                                                        float* __restrict__ wout,
-                                                        int* __restrict__ pairs,
-                                                        int* __restrict__ ncorr) {
+__global__ void __launch_bounds__(kPfThreads) pf_weight_kernel(const float* __restrict__ bank,
+                                                               const float* __restrict__ wprm,
+                                                               int n, float* __restrict__ wout,
+                                                               int* __restrict__ pairs,
+                                                               int* __restrict__ ncorr) {
+  __shared__ float sprm[n_weight_params(M, K)];
+  stage(sprm, wprm, n_weight_params(M, K));
+  const float* p = sprm;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   float rows[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) rows[i] = bank[(size_t)i * n + lane];
-  wout[lane] = greedy_weight<M, K, true>(rows, wprm, lane, n, pairs, ncorr);
+  wout[lane] = greedy_weight<M, K, true>(rows, p, lane, n, pairs, ncorr);
 }
 
 template <int M>
 cudaError_t launch_m(const float* bank, const float* wprm, int n, float* w, int* pairs,
                      int* ncorr, cudaStream_t st) {
-  const int threads = 256;
-  pf_weight_kernel<M, 16><<<(n + threads - 1) / threads, threads, 0, st>>>(bank, wprm, n, w,
-                                                                             pairs, ncorr);
+  pf_weight_kernel<M, 16><<<(n + kPfThreads - 1) / kPfThreads, kPfThreads, 0, st>>>(
+      bank, wprm, n, w, pairs, ncorr);
   return cudaGetLastError();
 }
 

@@ -306,6 +306,13 @@ class Tracker:
 
         # PF retry loop
         tracking = it > 1
+        # the constant-velocity prediction is trustworthy only on a mature
+        # track whose extrapolated step is itself small (the teleport guard
+        # in _resample_and_refine reads it)
+        pred_trustworthy = self._t(tracking, torch.bool)
+        if c.jump_translation_radius > 0.0:
+            pred_trustworthy = pred_trustworthy & (
+                torch.linalg.norm(prediction[:3, 3]) < 0.5 * c.jump_translation_radius)
         fresh = it == 1
         fac_t, fac_r = propagation_noise_factors(fresh, prediction,
                                                  torch.clamp(t - state.time_current, min=1e-6))
@@ -416,7 +423,8 @@ class Tracker:
             state = state.replace(fail_flag=self._t(flag, torch.int32))
             if it > 0:
                 state, jump = self._resample_and_refine(state, k_resample, det, state.bank,
-                                                        weights_norm, dyn, t, it, ess_h, best_idx)
+                                                        weights_norm, dyn, t, ess_h, best_idx,
+                                                        predicted, pred_trustworthy)
                 it = min(it + 1, 2)
                 state = state.replace(fail_flag=torch.where(
                     jump, int(FailFlag.PF_JUMP), state.fail_flag).to(torch.int32))
@@ -434,10 +442,13 @@ class Tracker:
         state = self._counters(state, it, unc, coast, deg)
         return state, det, highest_t, False
 
-    def _resample_and_refine(self, state, key, det, bank16, weights_norm, dyn, t, it, ess_h,
-                             argmax_idx):
+    def _resample_and_refine(self, state, key, det, bank16, weights_norm, dyn, t, ess_h,
+                             argmax_idx, predicted, pred_trustworthy):
         """Resampling (ESS-gated) + GN refinement over 2M+1 binding
-        hypotheses of the most-resampled particle."""
+        hypotheses of the most-resampled particle; with a
+        `jump_translation_radius`, a GN pose farther than it from the
+        trustworthy prediction publishes the prediction and sets the jump
+        flag."""
         c = self.config
         dev = self.device
         if c.resample_min_ess <= 0.0 or ess_h < c.resample_min_ess:
@@ -512,8 +523,14 @@ class Tracker:
         pick = lambda x: x.index_select(0, best_h.reshape(1))[0]
         pose = torch.where(any_feasible, pick(res.pose), pre_gn)
         jump = torch.max(torch.abs(pose[:3, :3] - pre_gn[:3, :3])) >= dyn.jump_threshold
+        final_pose = pose
+        if c.jump_translation_radius > 0.0:
+            teleport = pred_trustworthy & (torch.linalg.norm(pose[:3, 3] - predicted[:3, 3])
+                                           > c.jump_translation_radius)
+            final_pose = torch.where(teleport, predicted, pose)
+            jump = jump | teleport
         state = state.replace(
-            predicted_pose=pose,
+            predicted_pose=final_pose,
             covariance=pick(res.covariance),
             pose_updated=self._t(True, torch.bool),
             num_gn_iterations=pick(res.num_iterations),
@@ -521,7 +538,7 @@ class Tracker:
             weights=weights_norm,
             bank=bank16,
         )
-        return self._update_pose_times(state, t, pose), jump
+        return self._update_pose_times(state, t, final_pose), jump
 
 
 def _sort_resample(key, weights, bank16):

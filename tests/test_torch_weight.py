@@ -25,6 +25,7 @@ from pf_monocular_pose_estimator_tpu.pf.soa import weight_particles_soa as ref_w
 from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
 from pf_monocular_pose_estimator_tpu_torch.pf import soa, step_kernel, weight_kernel
 from pf_monocular_pose_estimator_tpu_torch.pf.propagate import NoiseBounds
+from test_torch_kernels_cuda import GREEDY_CAM, GREEDY_CASES, greedy_edge_lanes
 from test_torch_pf_step import CAM, _setup
 
 torch.set_num_threads(2)
@@ -51,6 +52,31 @@ def test_weight_kernel_plain_matches_pallas(seed, n):
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0, atol=1e-4)
     assert np.asarray(want[2]).max() >= 4  # particles matched most markers
+
+
+@pytest.mark.parametrize("m", range(3, 9))
+@pytest.mark.parametrize("case", GREEDY_CASES)
+def test_weight_plain_edge_cases_match_pallas(case, m):
+    """Kernel E's plain version against the Pallas kernel on the lanes the
+    card holds kernels B and E to (`greedy_edge_lanes`, K = 16, a ragged
+    N): ties across markers and within a row, reuse, masked markers and
+    detections, every cell masked, NaN and +-inf pose rows, overflowing
+    distances, tol_pf at inf and above sqrt(3e37).  A NaN cell leaves the
+    lane without a pair on both sides (the minimum is NaN).  Pairs and
+    counts equal; weights to 1e-4 or 1e-6 relative (they reach 1e36 and
+    inf here)."""
+    bank, a, _ = greedy_edge_lanes(case, m, 16, 517)
+    order = ("markers_h", "marker_mask", "det_xy", "det_mask", "tol_pf", "tol_init", "downgrade")
+    want = weight_particles_pallas(RefCamera.create(**GREEDY_CAM), jnp.asarray(bank),
+                                   *(jnp.asarray(a[n]) for n in order), None, block=1024,
+                                   interpret=True)
+    got = weight_kernel.weight_particles_bank(Camera.create(**GREEDY_CAM), t(bank),
+                                              *(torch.as_tensor(a[n]) for n in order))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-6, atol=1e-4)
+    no_pair = np.isnan(bank[:12]).any(0)
+    assert no_pair.sum() >= 12 and (got[2].numpy()[no_pair] == 0).all()
 
 
 def test_pf_step_pairs_variant_matches_straight_pallas():
