@@ -45,9 +45,9 @@ phase 3 it reports the `-Xptxas -v` line (registers, stack frame, spills)
 of every kernel (E, F and G must use no local memory, B none beyond the
 math library's 32-byte sincosf frame; B's and E's registers at M = 5), and
 the device time of each launch of kernels A, B, D, E, F and G by
-torch.profiler.  After phase 5 it
-gives the main path's device time against its wall time over 20 warm
-frames (torch.profiler), whence the card's idle share.  To compare with
+torch.profiler.  After phase 5 it gives the main path's device time
+against its wall time over 20 warm frames (torch.profiler), whence the
+card's idle share.  To compare with
 another commit on one card, copy this script into a checkout of it and
 run the two in turns.
 Phase 3 also holds the ring resampler at P = 1, 2, 4, 8 and kernel B per
@@ -341,8 +341,12 @@ def check_kernels(device, d, cam, markers):
         "pf_step per shard: the concatenated banks differ from the whole-bank pass"
     assert torch.equal(torch.cat([w for _, w in parts]), w_k), \
         "pf_step per shard: the concatenated weights differ from the whole-bank pass"
+    shard = bank[:, s_len:2 * s_len].contiguous()
+    shard_us = device_time_ms(lambda: sk.pf_step(shard, prm_b, keys, 5, 16, lane_offset=s_len,
+                                                 n_total=n)) * 1e3
     print(f"[kernels] pf_step per shard P={MESH_SHARDS} (lane_offset, n_total): bank and weights "
-          f"equal the whole-bank pass bit for bit")
+          f"equal the whole-bank pass bit for bit; one shard's pass S={s_len} takes "
+          f"{shard_us:.2f} us on the card alone")
 
     # B, pairs variant (#4): the same pass with each particle's greedy pairs
     got = sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True)
@@ -542,102 +546,6 @@ def check_windowed_large(device):
             print(f"[report] {card_line()}: monotone_gather launches N={n} (us): "
                   f"{launch_times_us(lambda: gk.windowed_gather(bank, anc))}")
             decode_count_placements(rank, bank)
-
-
-GREEDY_ALTERNATIVES = {
-    "256 threads a block": {"pf_common.cuh": [("kPfThreads = 128;", "kPfThreads = 256;")]},
-    "parameters through L1": {
-        "pf_step.cu": [("  stage(sprm, prm, 76 + n_weight_params(M, K));\n", ""),
-                       ("const float* p = sprm;", "const float* p = prm;")],
-        "pf_weight.cu": [("  stage(sprm, wprm, n_weight_params(M, K));\n", ""),
-                         ("const float* p = sprm;", "const float* p = wprm;")]},
-    "sinf and cosf": {"pf_step.cu": [(f"sincosf(nz[{i}], &s{c}, &c{c});",
-                                      f"s{c} = sinf(nz[{i}]); c{c} = cosf(nz[{i}]);")
-                                     for i, c in enumerate("abc")]},
-}
-
-
-def greedy_alternatives(d, cam, markers, device):
-    """Kernels B and E as built against each alternative of their constants
-    (GREEDY_ALTERNATIVES: the block size, the parameters' path, the trig
-    calls), each built from csrc/ with one substitution: outputs equal to the
-    built kernel's bit for bit, device times (CUDA graphs of 20 calls) in
-    turns, twice."""
-    import ctypes
-    import tempfile
-
-    import torch
-    from pf_monocular_pose_estimator_tpu_torch.pf import step_kernel as sk
-    from pf_monocular_pose_estimator_tpu_torch.utils import cuda_lib
-
-    csrc = ROOT / "pf_monocular_pose_estimator_tpu_torch" / "csrc"
-    names = ("pf_common.cuh", "pf_step.cu", "pf_weight.cu")
-    bank, prm, keys, _ = pf_inputs(d, cam, markers, device)
-    n = bank.shape[1]
-    wprm = prm[76:].contiguous()
-    bank_e = sk.pf_step(bank, prm, keys, 5, 16)[0]
-
-    def calls(lib):
-        def b(pairs=False):
-            out, w = torch.empty_like(bank), torch.empty(n, device=device)
-            pr = torch.empty((5, 2, n), dtype=torch.int32, device=device) if pairs else None
-            nc = torch.empty(n, dtype=torch.int32, device=device) if pairs else None
-            cuda_lib.check(lib.pfmpe_pf_step(
-                bank.data_ptr(), prm.data_ptr(), n, 5, 16, *(int(x) for x in keys), 0, n,
-                out.data_ptr(), w.data_ptr(), pr.data_ptr() if pairs else None,
-                nc.data_ptr() if pairs else None, cuda_lib.stream_ptr(bank)), "pf_step")
-            return (out, w, pr, nc) if pairs else (out, w)
-
-        def e():
-            w = torch.empty(n, device=device)
-            pr = torch.empty((5, 2, n), dtype=torch.int32, device=device)
-            nc = torch.empty(n, dtype=torch.int32, device=device)
-            cuda_lib.check(lib.pfmpe_pf_weight(bank_e.data_ptr(), wprm.data_ptr(), n, 5, 16,
-                                               w.data_ptr(), pr.data_ptr(), nc.data_ptr(),
-                                               cuda_lib.stream_ptr(bank)), "pf_weight")
-            return w, pr, nc
-        return {"B": b, "B pairs": lambda: b(True), "E": e}
-
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
-        for alt, subs in GREEDY_ALTERNATIVES.items():
-            texts = {name: (csrc / name).read_text() for name in names}
-            if not all(old in texts[name] for name in subs for old, _ in subs[name]):
-                print(f"[alternatives] {alt}: not applicable to this tree")
-                continue
-            out = Path(tmp) / str(len(procs))
-            out.mkdir()
-            for name, text in texts.items():
-                for old, new in subs.get(name, []):
-                    text = text.replace(old, new)
-                (out / name).write_text(text)
-            procs[alt] = (out, subprocess.Popen(
-                [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(out / "lib.so"),
-                 str(out / "pf_step.cu"), str(out / "pf_weight.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        fns = {"as built": calls(cuda_lib.library())}
-        for alt, (out, proc) in procs.items():
-            _, err = proc.communicate()
-            assert proc.returncode == 0, f"alternative {alt} failed to build:\n{err}"
-            lib = ctypes.CDLL(str(out / "lib.so"))
-            for name in ("pfmpe_pf_step", "pfmpe_pf_weight"):
-                getattr(lib, name).argtypes = list(cuda_lib._SIGNATURES[name])
-                getattr(lib, name).restype = ctypes.c_int
-            fns[alt] = calls(lib)
-        want = {k: f() for k, f in fns["as built"].items()}
-        for alt, f in fns.items():
-            for k in want:
-                got = f[k]()
-                torch.cuda.synchronize()
-                assert all(torch.equal(g, w) for g, w in zip(got, want[k])), \
-                    f"alternative {alt}: {k} differs from the built kernel"
-        times = {alt: {k: [] for k in want} for alt in fns}
-        for _ in range(2):
-            for alt, f in fns.items():
-                for k in want:
-                    times[alt][k].append(round(device_time_ms(f[k]) * 1e3, 2))
-    print(f"[alternatives] {card_line()}: kernels B and E at N={n} on the card alone (us), "
-          f"outputs equal to the built kernel's: {times}")
 
 
 def decode_count_placements(rank, bank):
@@ -957,7 +865,7 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk):
             assert frame == stores == loads == 0, f"{src} {name} uses local memory"
         if src == "pf_step.cu":
             assert frame <= 32 and stores == loads == 0, f"{src} {name} uses local memory"
-        if src in ("pf_step.cu", "pf_weight.cu") and "<5, 16" in name:
+        if name.startswith(("pf_step_kernel<(int)5,", "pf_weight_kernel<(int)5,")):
             greedy_regs[name] = regs
     print(f"[report] {card_line()}: registers of kernels B and E at M = 5: {greedy_regs}")
     crop, prm = crop_inputs(d, device)
@@ -965,15 +873,15 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk):
     bank, prm_b, keys, _ = pf_inputs(d, cam, markers, device)
     bank_e = sk.pf_step(bank, prm_b, keys, 5, 16)[0]
     wprm = prm_b[76:].contiguous()
-    print(f"[report] {card_line()}: detect_stats launches (us): "
-          f"{launch_times_us(lambda: dk.detect_stats(crop, prm, 5, True, 12, 16))}")
-    print(f"[report] {card_line()}: gn_refine launches (us): "
-          f"{launch_times_us(lambda: rk.gn_refine(*gn_args, 25, 1e-4))}")
-    print(f"[report] {card_line()}: pf_step launches N={N_PARTICLES} (us): "
-          f"{launch_times_us(lambda: sk.pf_step(bank, prm_b, keys, 5, 16))}, with pairs "
-          f"{launch_times_us(lambda: sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True))}")
-    print(f"[report] {card_line()}: pf_weight launches N={N_PARTICLES} (us): "
-          f"{launch_times_us(lambda: wk.weight(bank_e, wprm, 5, 16))}")
+    # one trace for all four: a run's later traces have come back without device time
+    times = launch_times_us(lambda: (dk.detect_stats(crop, prm, 5, True, 12, 16),
+                                     rk.gn_refine(*gn_args, 25, 1e-4),
+                                     sk.pf_step(bank, prm_b, keys, 5, 16),
+                                     sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True),
+                                     wk.weight(bank_e, wprm, 5, 16)))
+    print(f"[report] {card_line()}: launches of kernels A (detect_stats), D (gn_refine), B "
+          f"(pf_step, weights only and with pairs) and E (pf_weight) at N={N_PARTICLES} (us): "
+          f"{times}")
 
 
 def accuracy(est, gt):
@@ -1015,7 +923,6 @@ def main() -> int:
     rows = check_kernels(device, d, cam, markers)
     torch.cuda.synchronize()
     report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk)
-    greedy_alternatives(d, cam, markers, device)
 
     # launch counters: (wrapper, attribute) per kernel row
     counters = {"threshold_blur": (dk.threshold_blur, "launches"),

@@ -18,18 +18,19 @@
 // predicted poses; then the marker-major greedy weight of pf_common.cuh.
 //
 // What bounds it on Hopper: one thread per particle reads 64 B and writes
-// 68 B (+44 B of pairs and count with WANT_PAIRS; 13.2 MB / 17.6 MB for
-// N = 100,000, ~4-5 us of HBM time at 3.35 TB/s); the work is threefry
-// hashing, the compose and the greedy weight (chip_smoke.py's
-// PROPAGATE_OPS and weight_ops), about as long at the fp32 peak, so it is
-// compute- and latency-bound.  The design keeps the greedy state in
-// registers as M row minima (pf_common.cuh: the volume is never held, a
-// greedy step is O(M)), stages the launch's parameters once a block in
-// shared memory and reads the bank row by row so neighbouring threads touch
-// neighbouring addresses.  Built with --fmad=false and precise sincosf so every
-// expression rounds as the reference writes it; the 32-byte stack frame
-// ptxas reports is the math library's reduction of huge angles (local
-// memory only on that path).
+// 68 B (+44 B of pairs and count with WANT_PAIRS): 13.2 MB / 17.6 MB for
+// N = 100,000, 3.9 / 5.3 us at 3.35 TB/s.  The work is ~2.0 k operations a
+// particle (threefry hashing, the compose, the greedy weight: chip_smoke.py's
+// PROPAGATE_OPS and weight_ops), 3.0 us at the 67 TFLOP/s fp32 peak; with
+// --fmad=false every add and multiply issues alone, so ~6 us is the
+// reachable floor and the kernel is compute- and latency-bound.  The design
+// keeps the greedy state in registers as M row minima (pf_common.cuh: the
+// volume is never held, a greedy step is O(M)), stages the launch's
+// parameters once a block in shared memory and reads the bank row by row so
+// neighbouring threads touch neighbouring addresses.  Built with
+// --fmad=false and precise sincosf so every expression rounds as the
+// reference writes it; the 32-byte stack frame ptxas reports is the math
+// library's reduction of huge angles (local memory only on that path).
 
 #include "pf_common.cuh"
 
@@ -44,12 +45,11 @@ __global__ void __launch_bounds__(kPfThreads) pf_step_kernel(
     int* __restrict__ ncorr) {
   __shared__ float sprm[76 + n_weight_params(M, K)];
   stage(sprm, prm, 76 + n_weight_params(M, K));
-  const float* p = sprm;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const float* lr = p;
-  const float* pin = p + 32;
-  const float* prop = p + 64;
+  const float* lr = sprm;
+  const float* pin = sprm + 32;
+  const float* prop = sprm + 64;
 
   float t[16];
 #pragma unroll
@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(kPfThreads) pf_step_kernel(
     }
   }
 
-  wout[lane] = greedy_weight<M, K, WANT_PAIRS>(rows, p + 76, lane, n, pairs, ncorr);
+  wout[lane] = greedy_weight<M, K, WANT_PAIRS>(rows, sprm + 76, lane, n, pairs, ncorr);
 }
 
 template <int M, bool WANT_PAIRS>

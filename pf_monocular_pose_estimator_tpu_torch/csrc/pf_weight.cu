@@ -13,14 +13,15 @@
 //
 // What bounds it on Hopper: one thread per particle reads 12 rows (48 B) and
 // writes 48 B (weight, 2M = 10 pair rows, count): 9.6 MB at N = 100,000,
-// ~2.9 us at 3.35 TB/s.  The work these inputs need is the projection, the
-// 80-cell volume with its row minima and five greedy steps over five row
-// pairs (chip_smoke.py's weight_ops), about as long at the 67 TFLOP/s fp32
-// peak.  The TPU kernel staged the volume in VMEM scratch and swept it M
-// times; here each row keeps its first minimum while the volume is built
-// (pf_common.cuh), so nothing of the volume is held, the parameters are
-// staged once a block in shared memory, and the row-wise bank reads and
-// pair writes coalesce.  Built with --fmad=false.
+// 2.9 us at 3.35 TB/s.  The work these inputs need (the projection, the
+// 80-cell volume with its row minima, five greedy steps over five row pairs:
+// chip_smoke.py's weight_ops) is ~1 k operations a particle, 1.4 us at the
+// 67 TFLOP/s fp32 peak and ~2.9 us with every add and multiply issued alone
+// (--fmad=false).  The TPU kernel staged the volume in VMEM scratch and
+// swept it M times; here each row keeps its first minimum while the volume
+// is built (pf_common.cuh), so nothing of the volume is held, the
+// parameters are staged once a block in shared memory, and the row-wise bank
+// reads and pair writes coalesce.  Built with --fmad=false.
 
 #include "pf_common.cuh"
 
@@ -35,13 +36,12 @@ __global__ void __launch_bounds__(kPfThreads) pf_weight_kernel(const float* __re
                                                                int* __restrict__ ncorr) {
   __shared__ float sprm[n_weight_params(M, K)];
   stage(sprm, wprm, n_weight_params(M, K));
-  const float* p = sprm;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   float rows[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) rows[i] = bank[(size_t)i * n + lane];
-  wout[lane] = greedy_weight<M, K, true>(rows, p, lane, n, pairs, ncorr);
+  wout[lane] = greedy_weight<M, K, true>(rows, sprm, lane, n, pairs, ncorr);
 }
 
 template <int M>

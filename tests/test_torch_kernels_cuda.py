@@ -234,8 +234,8 @@ def _greedy_inputs(dev, case, m, n):
 @pytest.mark.parametrize("case", GREEDY_CASES)
 def test_greedy_edge_cases_exact(dev, case, m, n):
     """Kernels E and B (weights only and with pairs) against their plain
-    versions on `greedy_edge_lanes`: pairs, pair counts and banks equal,
-    weights equal wherever they are."""
+    versions on `greedy_edge_lanes`: weights, pairs, pair counts and banks
+    equal (NaN where the twin's bank is NaN)."""
     bank, prm = _greedy_inputs(dev, case, m, n)
     wprm = prm[76:].contiguous()
     got, want = wk.weight(bank, wprm, m, 16), wk.weight_plain(bank, wprm, m, 16)
@@ -244,8 +244,8 @@ def test_greedy_edge_cases_exact(dev, case, m, n):
     got_p = sk.pf_step(bank, prm, keys, m, 16, want_pairs=True)
     want_p = sk.pf_step_plain(bank, prm, keys, m, 16, want_pairs=True)
     torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-    assert torch.equal(got[0], want[0])
+    differ = (got[0] != want[0]) | (got[1] != want[1]).any(0).any(0) | (got[2] != want[2])
+    assert not bool(differ.any()), f"E differs from plain on {int(differ.sum())} of {n} lanes"
     assert _equal_nan(got_p[0], want_p[0]) and _equal_nan(got_b[0], want_p[0])
     assert torch.equal(got_p[2], want_p[2]) and torch.equal(got_p[3], want_p[3])
     assert torch.equal(got_p[1], want_p[1]) and torch.equal(got_b[1], want_p[1])
