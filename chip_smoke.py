@@ -44,14 +44,20 @@ times F with the other placement of its window-start count.  After
 phase 3 it reports the `-Xptxas -v` line (registers, stack frame, spills)
 of every kernel (E, F and G must use no local memory, B none beyond the
 math library's 32-byte sincosf frame; B's and E's registers at M = 5), and
-the device time of each launch of kernels A, B, D, E, F and G by
+the device time of each launch of kernels A, B, D, E, F, G and H by
 torch.profiler.  After phase 5 it gives the main path's device time
 against its wall time over 20 warm frames (torch.profiler), whence the
 card's idle share.  To compare with
 another commit on one card, copy this script into a checkout of it and
 run the two in turns.
 Phase 3 also holds the ring resampler at P = 1, 2, 4, 8 and kernel B per
-shard against their whole-bank results, bit for bit.
+shard against their whole-bank results, bit for bit.  Kernel H is one
+launch over the 4 shards of a local mesh; after phase 3 its time on the
+card alone at N = 100,000 and 1,000,000 stands beside four one-shard
+launches, `index_select` and its bound, with the device time of one whole
+ring resampling (`ring_timings`).  `python3 chip_smoke.py --ring-only`
+runs only phases 1, 2 and that comparison, without the one-launch form,
+so that a checkout from before it can be measured on the same card.
 The last three lines are the card, the kernel table and the device line.
 It imports nothing of JAX.
 """
@@ -577,50 +583,85 @@ def decode_count_placements(rank, bank):
     print(f"[report] {card_line()}: resample_decode N={n} on the card alone (us): {times}")
 
 
+def ring_blocks(shards, deltas):
+    """Each local shard's ring blocks for `deltas`, as views: shard i's block
+    for delta d is shard (i - d) mod P's 12 rows of `shards` (P, 16, S), what
+    `LocalMesh.receive` gives (written out, so that a checkout without it
+    runs this too)."""
+    p = shards.shape[0]
+    return [[shards[(i - d) % p, :12] for d in deltas] for i in range(p)]
+
+
+def ring_positions(p: int, s: int, total: int, gen, device):
+    """(P, S) int32 positions into each shard's concatenation of `total`
+    lanes: sorted, covering both ends, with clamped draws (every 97th) that
+    break the order."""
+    import torch
+
+    pos = torch.sort(torch.randint(0, total, (p, s), generator=gen), dim=1).values.to(torch.int32)
+    pos[:, ::97] = pos[:, s // 2:s // 2 + 1]
+    pos[:, 0], pos[:, -1] = 0, total - 1
+    return pos.to(device)
+
+
+def ring_bound(lanes: int):
+    """Kernel H's bound over `lanes` output lanes: each reads a 4-byte
+    position and 12 rows (48 bytes) and writes 16 rows (64 bytes), once;
+    ~20 integer operations a lane."""
+    return bound(lanes * (4 + 48 + 64), 20 * lanes)
+
+
 def check_ring_gather(device, bank_k, wn, want_c):
-    """Kernel H against its plain version, then the ring resampler on a local
-    mesh at P = 1, 2, 4, 8 against the single-device result `want_c` of the
-    same weights `wn`; returns H's table row (timed on the window profile)."""
+    """Kernel H, one launch over the 4 shards of N = 100,000, against its
+    plain version on three profiles of ring blocks (views of the other
+    shards' rows, as the resampler hands them over), then the ring resampler
+    on a local mesh at P = 1, 2, 4, 8 against the single-device result
+    `want_c` of the same weights `wn`; returns H's table row, timed on the
+    blocks of the ring that reaches every shard (the sharded replay's)."""
     import torch
     from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
     from pf_monocular_pose_estimator_tpu_torch.parallel.comm import (LocalMesh, shard_lanes,
                                                                      unshard_lanes)
-    from pf_monocular_pose_estimator_tpu_torch.parallel.resample import make_distributed_resampler
+    from pf_monocular_pose_estimator_tpu_torch.parallel.resample import (make_distributed_resampler,
+                                                                         ring_deltas)
     from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
     from pf_monocular_pose_estimator_tpu_torch.utils import prng
 
-    n = bank_k.shape[1]
-    s, w = n // MESH_SHARDS, n // MESH_SHARDS // 4
+    n, p = bank_k.shape[1], MESH_SHARDS
+    s, w = n // p, n // p // 4
     gen = torch.Generator().manual_seed(1)
-    shards = shard_lanes(LocalMesh(MESH_SHARDS), bank_k)  # (4, 16, S)
-    own = shards[1, :12]  # the top of a (16, S) bank: rows strided, uncopied
+    mesh = LocalMesh(p)
+    shards = shard_lanes(mesh, bank_k)  # (4, 16, S)
+    top12 = shards[:, :12]
     profiles = {
-        "window": [own, shards[2, :12, :w].contiguous(), shards[0, :12, s - w:].contiguous()],
-        "full_blocks": [own] + [torch.randn(12, s, generator=gen).to(device) for _ in range(4)],
-        "identity": [own],
+        "window": [list(shards[:, :12]), mesh.receive(top12[:, :, :w], -1),
+                   mesh.receive(top12[:, :, s - w:], 1)],
+        "all_reach": [mesh.receive(top12, d) for d in ring_deltas(p - 1, p)],
+        "identity": [list(shards[:, :12])],
     }
-    for name, blocks in profiles.items():
-        total = sum(b.shape[1] for b in blocks)
+    for name, received in profiles.items():
+        blocks = [list(shard) for shard in zip(*received)]
+        total = sum(b.shape[1] for b in blocks[0])
         if name == "identity":
-            pos = torch.arange(s, dtype=torch.int32, device=device)
+            pos = torch.arange(s, dtype=torch.int32, device=device).repeat(p, 1)
         else:
-            pos = torch.sort(torch.randint(0, total, (s,), generator=gen)).values.to(torch.int32)
-            pos[::97] = pos[s // 2]  # clamped draws break the order
-            pos = pos.to(device)
-            assert int(pos.min()) < s and int(pos.max()) >= total - blocks[-1].shape[1], \
-                f"ring_gather {name}: positions miss a block"
+            pos = ring_positions(p, s, total, gen, device)
+        before = hk.ring_gather.launches
         got = hk.ring_gather(blocks, pos)
         want = hk.ring_gather_plain(blocks, pos)
         torch.cuda.synchronize()
+        assert hk.ring_gather.launches == before + 1, "ring_gather: not one launch for 4 shards"
         assert torch.equal(got, want), f"ring_gather differs from plain ({name})"
         if name == "identity":
-            assert torch.equal(got[:12], own), "ring_gather identity changed the block"
-        if name == "window":
-            timed = (blocks, pos, torch.cat(blocks, dim=1), pos.long())
-        print(f"[kernels] ring_gather {name} S={s} ({len(blocks)} blocks, {total} lanes): exact")
-    blocks, pos, cat12, pos64 = timed
-    # read the int32 positions and 12 rows, write 16 rows; ~20 integer operations a lane
-    b_ms, b_by = bound(s * (4 + 48 + 64), 20 * s)
+            assert torch.equal(got[:, :12], shards[:, :12]), "ring_gather identity changed the block"
+        if name == "all_reach":
+            timed = (blocks, pos)
+        print(f"[kernels] ring_gather {name} P={p} S={s} ({len(blocks[0])} blocks a shard, "
+              f"{total} lanes): exact, one launch")
+    blocks, pos = timed
+    cat12 = torch.cat([torch.cat(shard, 1) for shard in blocks], 1)
+    pos64 = (pos.long() + torch.arange(p, device=device)[:, None] * p * s).reshape(-1)
+    b_ms, b_by = ring_bound(p * s)
     row = dict(name="ring_gather", route="cuda",
                source="pf_monocular_pose_estimator_tpu_torch/csrc/ring_gather.cu",
                replaces=f"{REF}/pf/pallas_step.py:716", max_abs_err=0.0,
@@ -630,8 +671,9 @@ def check_ring_gather(device, bank_k, wn, want_c):
                library_ms=time_ms(lambda: cat12.index_select(1, pos64)),
                device_ms=device_time_ms(lambda: hk.ring_gather(blocks, pos)),
                library_device_ms=device_time_ms(lambda: cat12.index_select(1, pos64)))
-    print(f"[timing] ring_gather S={s} on the card alone (CUDA graph of 20 launches): "
-          f"{row['device_ms'] * 1e3:.2f} us, index_select {row['library_device_ms'] * 1e3:.2f} us")
+    print(f"[timing] ring_gather P={p} S={s}, one launch, on the card alone (CUDA graph of 20 "
+          f"launches): {row['device_ms'] * 1e3:.2f} us, index_select over the concatenation "
+          f"{row['library_device_ms'] * 1e3:.2f} us")
 
     # the ring resampler across widths against the single-device sort path + kernel C
     key = prng.prng_key(3)
@@ -642,20 +684,151 @@ def check_ring_gather(device, bank_k, wn, want_c):
         before = hk.ring_gather.launches
         out = resample(key, shard_lanes(mesh, wn), shard_lanes(mesh, bank_k))
         torch.cuda.synchronize()
-        assert hk.ring_gather.launches == before + p, "the resampler did not launch kernel H"
+        assert hk.ring_gather.launches == before + 1, "the resampler did not launch kernel H once"
         assert torch.equal(unshard_lanes(mesh, out.resampled), want_c), \
             f"sharded resampler P={p}: resampled differs from the single-device path"
         assert torch.equal(unshard_lanes(mesh, out.counts).long(), counts.long()), \
             f"sharded resampler P={p}: counts differ"
         assert int(out.most) == int(most), f"sharded resampler P={p}: most differs"
         assert int(out.clipped) == 0, f"sharded resampler P={p}: {int(out.clipped)} draws clipped"
-        if p == MESH_SHARDS:
-            w_sh, b_sh = shard_lanes(mesh, wn), shard_lanes(mesh, bank_k)
-            print(f"[timing] ring resampler N={n} P={p}, all of it: "
-                  f"{time_ms(lambda: resample(key, w_sh, b_sh), 5) * 1e3:.1f} us")
     print(f"[kernels] sharded resampler N={n}: P = 1, 2, 4, 8 equal stratified_resample_soa + "
-          f"resample_gather bit for bit (resampled, counts, most), clipped 0")
+          f"resample_gather bit for bit (resampled, counts, most), clipped 0, one launch of H")
     return row
+
+
+def device_busy_us(prof):
+    """(the union of a trace's device spans (kernels, copies, sets) in µs,
+    the number of spans)."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy, len(spans)
+
+
+def busy_us_per_call(fn, reps: int = 5, attempts: int = 3):
+    """Device µs of one call of `fn`: the union of its device spans over
+    `reps` calls under torch.profiler (CUDA activity), over `reps`; a trace
+    that lists no device span is taken again, up to `attempts` traces."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy, _ = device_busy_us(prof)
+        if busy > 0:
+            return round(busy / reps, 2)
+    return "not measured (the profiler saw no device time)"
+
+
+def ring_timings(device, batched: bool) -> dict:
+    """Kernel H and the ring resampler at N = 100,000 and 1,000,000 over a
+    local mesh of 4 shards, every block reaching every shard (SHARDED): H as
+    four one-shard launches and, with `batched`, as one launch over the four
+    shards, each against its plain version and timed on the card alone (CUDA
+    graphs of 20 calls), beside `index_select` over the concatenation and
+    H's bound; then the device time of one whole ring resampling
+    (torch.profiler, the union of its device spans), also on the reference's
+    default ring.  Uses only what a checkout from before the batched launch
+    has too: `python3 chip_smoke.py --ring-only` runs it (without `batched`)
+    in such a checkout, for comparison on one card."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
+    from pf_monocular_pose_estimator_tpu_torch.parallel.comm import LocalMesh, shard_lanes
+    from pf_monocular_pose_estimator_tpu_torch.parallel.resample import (make_distributed_resampler,
+                                                                         ring_deltas)
+    from pf_monocular_pose_estimator_tpu_torch.utils import prng
+
+    p, out = MESH_SHARDS, {}
+    mesh = LocalMesh(p)
+    for n in (N_PARTICLES, N_LARGE):
+        s = n // p
+        gen = torch.Generator().manual_seed(4)
+        bank = torch.randn(16, n, generator=gen)
+        bank[12:15], bank[15] = 0.0, 1.0
+        wts = torch.softmax(0.8 * torch.randn(n, generator=gen), 0).to(device)
+        bank = bank.to(device)
+        shards = shard_lanes(mesh, bank)
+        blocks = ring_blocks(shards, ring_deltas(p - 1, p))
+        pos = ring_positions(p, s, p * s, gen, device)
+        want = torch.stack([hk.ring_gather_plain(blocks[i], pos[i]) for i in range(p)])
+        per_shard = lambda: [hk.ring_gather(blocks[i], pos[i]) for i in range(p)]
+        got = torch.stack(per_shard())
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"ring_gather, one launch a shard, differs at N={n}"
+        cat12 = torch.cat([torch.cat(shard, 1) for shard in blocks], 1)
+        pos64 = (pos.long() + torch.arange(p, device=device)[:, None] * p * s).reshape(-1)
+        row = {"one_launch_a_shard_device_us": round(device_time_ms(per_shard) * 1e3, 2),
+               "index_select_device_us": round(device_time_ms(
+                   lambda: cat12.index_select(1, pos64)) * 1e3, 2),
+               "bound_us": round(ring_bound(n)[0] * 1e3, 2)}
+        if batched:
+            before = hk.ring_gather.launches
+            got = hk.ring_gather(blocks, pos)
+            torch.cuda.synchronize()
+            assert hk.ring_gather.launches == before + 1 and torch.equal(got, want), \
+                f"ring_gather over {p} shards differs from plain at N={n}"
+            row["one_launch_device_us"] = round(device_time_ms(
+                lambda: hk.ring_gather(blocks, pos)) * 1e3, 2)
+        key = prng.prng_key(3)
+        w_sh, b_sh = shard_lanes(mesh, wts), shard_lanes(mesh, bank)
+        for ring, kwargs in (("all_reach", dict(reach=p - 1, payload_window=None)),
+                             ("default_ring", {})):
+            resample = make_distributed_resampler(mesh, n, **kwargs)
+            row[f"resampling_{ring}_device_us"] = busy_us_per_call(
+                lambda: resample(key, w_sh, b_sh))
+        out[n] = row
+        print(f"[ring] {card_line()}: N={n} P={p} (us): {row}")
+    return out
+
+
+def ring_design_sweep(device):
+    """Kernel H's design against its other values (lanes a thread, vector
+    positions and stores, threads a block), one launch over the 4 shards at
+    N = 100,000 and 1,000,000, each held to the plain version bit for bit;
+    device µs from CUDA graphs of 20 launches."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
+    from pf_monocular_pose_estimator_tpu_torch.parallel.comm import LocalMesh, shard_lanes
+    from pf_monocular_pose_estimator_tpu_torch.parallel.resample import ring_deltas
+
+    p, built = MESH_SHARDS, dict(hk.DESIGN)
+    designs = [dict(lanes=1, vec=False, threads=t) for t in (128, 256)]
+    designs += [dict(lanes=l, vec=v, threads=t) for l in (2, 4) for v in (True, False)
+                for t in (128, 256)]
+    inputs = []
+    for n in (N_PARTICLES, N_LARGE):
+        gen = torch.Generator().manual_seed(5)
+        shards = shard_lanes(LocalMesh(p), torch.randn(16, n, generator=gen).to(device))
+        blocks = ring_blocks(shards, ring_deltas(p - 1, p))
+        pos = ring_positions(p, n // p, n, gen, device)
+        inputs.append((n, blocks, pos, hk.ring_gather_plain(blocks, pos)))
+    times = {}
+    try:
+        for design in designs:
+            hk.DESIGN = design
+            tag = f"lanes {design['lanes']}, {'vector' if design['vec'] else 'scalar'}, " \
+                  f"{design['threads']} threads"
+            for n, blocks, pos, want in inputs:
+                got = hk.ring_gather(blocks, pos)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"ring_gather ({tag}) differs from plain at N={n}"
+            times[tag] = [round(device_time_ms(lambda: hk.ring_gather(blocks, pos)) * 1e3, 2)
+                          for _, blocks, pos, _ in inputs]
+    finally:
+        hk.DESIGN = built
+    print(f"[report] {card_line()}: ring_gather designs, one launch over {p} shards, N = "
+          f"{N_PARTICLES} and {N_LARGE}, on the card alone (us; as built {built}): {times}")
+    return times
 
 
 def replay(device, d, cam, markers, overrides=None, n_frames=None, n_particles=N_PARTICLES,
@@ -729,12 +902,7 @@ def idle_share(device, d, cam, markers, n_frames: int = 20) -> dict:
     wall_ms = run(n_frames)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = run(2 * n_frames)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        busy_us += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
+    busy_us, n_spans = device_busy_us(prof)
     if busy_us <= 0:
         return {"wall_ms_per_frame": wall_ms,
                 "device_ms_per_frame": "not measured (the trace listed no device spans)",
@@ -744,7 +912,7 @@ def idle_share(device, d, cam, markers, n_frames: int = 20) -> dict:
             "idle_share": 1.0 - device_ms / wall_ms,
             "profiled_wall_ms_per_frame": profiled_wall_ms,
             "profiled_idle_share": 1.0 - device_ms / profiled_wall_ms,
-            "device_spans_per_frame": len(spans) / n_frames}
+            "device_spans_per_frame": n_spans / n_frames}
 
 
 def one_rank_group(device, d, cam, markers):
@@ -852,16 +1020,22 @@ def launch_times_us(fn, reps: int = 20, attempts: int = 3):
     return "not measured (the profiler saw no device time)"
 
 
-def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk):
-    """The build report of every kernel (F, G and E must use no local memory,
-    B none beyond the math library's 32-byte sincosf frame; the registers of
-    B and E at the main path's M = 5) and the device time of each launch of
-    kernels A, B, D and E on their main-path inputs."""
+def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
+    """The build report of every kernel (E, F, G and H must use no local
+    memory, B none beyond the math library's 32-byte sincosf frame; the
+    registers of B and E at the main path's M = 5) and the device time of
+    each launch of kernels A, B, D, E and H on their main-path inputs (H:
+    one launch over the 4 shards of B's bank, every block reaching every
+    shard)."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.parallel.comm import LocalMesh, shard_lanes
+    from pf_monocular_pose_estimator_tpu_torch.parallel.resample import ring_deltas
+
     greedy_regs = {}
     for src, name, regs, frame, stores, loads in ptxas_report(cuda_lib):
         print(f"[report] ptxas {src} {name}: {regs} registers, {frame} bytes stack frame, "
               f"{stores} bytes spill stores, {loads} bytes spill loads")
-        if src in ("resample_decode.cu", "monotone_gather.cu", "pf_weight.cu"):
+        if src in ("resample_decode.cu", "monotone_gather.cu", "pf_weight.cu", "ring_gather.cu"):
             assert frame == stores == loads == 0, f"{src} {name} uses local memory"
         if src == "pf_step.cu":
             assert frame <= 32 and stores == loads == 0, f"{src} {name} uses local memory"
@@ -873,15 +1047,20 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk):
     bank, prm_b, keys, _ = pf_inputs(d, cam, markers, device)
     bank_e = sk.pf_step(bank, prm_b, keys, 5, 16)[0]
     wprm = prm_b[76:].contiguous()
-    # one trace for all four: a run's later traces have come back without device time
+    p = MESH_SHARDS
+    blocks = ring_blocks(shard_lanes(LocalMesh(p), bank_e), ring_deltas(p - 1, p))
+    pos = ring_positions(p, N_PARTICLES // p, N_PARTICLES, torch.Generator().manual_seed(6),
+                         device)
+    # one trace for all five: a run's later traces have come back without device time
     times = launch_times_us(lambda: (dk.detect_stats(crop, prm, 5, True, 12, 16),
                                      rk.gn_refine(*gn_args, 25, 1e-4),
                                      sk.pf_step(bank, prm_b, keys, 5, 16),
                                      sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True),
-                                     wk.weight(bank_e, wprm, 5, 16)))
+                                     wk.weight(bank_e, wprm, 5, 16),
+                                     hk.ring_gather(blocks, pos)))
     print(f"[report] {card_line()}: launches of kernels A (detect_stats), D (gn_refine), B "
-          f"(pf_step, weights only and with pairs) and E (pf_weight) at N={N_PARTICLES} (us): "
-          f"{times}")
+          f"(pf_step, weights only and with pairs), E (pf_weight) and H (ring_gather, {p} "
+          f"shards) at N={N_PARTICLES} (us): {times}")
 
 
 def accuracy(est, gt):
@@ -918,11 +1097,19 @@ def main() -> int:
     cuda_lib.library()
     print(f"[build] kernels ready in {cuda_lib.build_seconds:.2f} s ({cuda_lib.build_dir()})")
 
+    if sys.argv[1:] == ["--ring-only"]:
+        ring = ring_timings(device, batched=False)
+        print(card)
+        print(json.dumps({"ring": ring}))
+        return 0
+
     # 3. kernels against plain
     d, cam, markers = load_golden(device)
     rows = check_kernels(device, d, cam, markers)
     torch.cuda.synchronize()
-    report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk)
+    report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk)
+    ring = ring_timings(device, batched=True)
+    ring_designs = ring_design_sweep(device)
 
     # launch counters: (wrapper, attribute) per kernel row
     counters = {"threshold_blur": (dk.threshold_blur, "launches"),
@@ -1003,19 +1190,20 @@ def main() -> int:
     assert int(sharded_run.clipped[-1]) == 0, f"sharded: {sharded_run.clipped[-1]} draws clipped"
     assert sharded_run.state.bank.shape == (MESH_SHARDS, 16, N_PARTICLES // MESH_SHARDS)
     # one launch of B per shard and PF pass (at least one pass a tracked frame), one
-    # of H per shard and resampling frame
+    # of H for all shards a resampling: as many as the main path's gathers
     got = sharded_run.launches
     assert got["pf_step"] % MESH_SHARDS == 0 and got["pf_step"] >= MESH_SHARDS * 59, \
         "sharded: kernel B launches"
-    assert got["ring_gather"] % MESH_SHARDS == 0 and got["ring_gather"] > 0, \
-        "sharded: kernel H launches"
+    assert got["ring_gather"] == main_run.launches["resample_gather"] > 0, \
+        f"sharded: {got['ring_gather']} launches of kernel H, not one a resampling " \
+        f"({main_run.launches['resample_gather']})"
     assert got["resample_gather"] == 0, "sharded: launched the unsharded gather"
     for name in ("threshold_blur", "detect_stats", "gn_refine"):
         assert got[name] > 0, f"the sharded replay never launched {name}"
     print(f"[sharded] pf_step {got['pf_step']} launches (main path "
           f"{main_run.launches['pf_step']} x {MESH_SHARDS} shards), ring_gather "
           f"{got['ring_gather']} (main path's resample_gather "
-          f"{main_run.launches['resample_gather']} x {MESH_SHARDS})")
+          f"{main_run.launches['resample_gather']})")
     sharded_warm = warm_replay("sharded", mesh=mesh, **SHARDED)
 
     # the reference's default ring (reach 1, a window of S / 4): what it clips here
@@ -1065,7 +1253,8 @@ def main() -> int:
                         clipped=int(sharded_run.clipped[-1]),
                         default_ring_clipped=int(default_run.clipped[-1])),
         "sharded_large": dict(summary(large_run, large_warm), n_particles=N_LARGE,
-                              frames=SHORT_FRAMES, clipped=int(large_run.clipped[-1]))}))
+                              frames=SHORT_FRAMES, clipped=int(large_run.clipped[-1])),
+        "ring": ring, "ring_designs": ring_designs}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
-// Ring gather of the sharded resampler: one shard's resampled bank from the
-// blocks its ring exchange delivered, without building their concatenation:
-//   out[r, t] = cat(blocks, axis=1)[r, pos[t]] for r < 12,
+// Ring gather of the sharded resampler: every local shard's resampled bank
+// from the blocks its ring exchange delivered, in one launch, without
+// building their concatenation:
+//   out[l, r, t] = cat(blocks_l, axis=1)[r, pos[l, t]] for r < 12,
 //   rows 12-15 = (0, 0, 0, 1).
 //
 // Replaces the reference's Pallas TPU kernel
@@ -13,70 +14,154 @@
 // problem, so what the chain computes is one launch here; with one block
 // and pos = 0..S-1 it is the two pins with nothing between them.
 //
-// A block is 12 rows of `len` lanes with its own row stride, so a shard's
-// own block can be the top of its (16, S) bank and a window a slice of a
-// neighbour's, uncopied.  Positions past the last block read its last lane
+// The launch covers every local shard (blockIdx.y).  It takes a table of
+// descriptors in its parameters, one per (shard, block): a pointer and a
+// row stride; the lane counts are one per block, the same on every shard.
+// So on a mesh of P shards in one process a block is the other shard's
+// rows where they lie (a view at any lane offset), and nothing is copied
+// before the gather.  Positions past the last block read its last lane
 // (the resampler produces none; the clamp only keeps the read in bounds).
 //
-// What bounds it on Hopper: bytes.  S = 25,000 reads 4 S bytes of positions
-// and 48 S of bank and writes 64 S (2.9 MB, ~0.87 us at 3.35 TB/s).  One
-// thread per output lane: positions are non-decreasing except at clamped
-// draws, so neighbouring threads read neighbouring (or equal) lanes of one
-// block and the row reads coalesce; every write is coalesced.
+// What bounds it on Hopper: bytes.  A lane reads 4 bytes of position and 48
+// of bank and writes 64 (116 bytes): L * S = 100,000 lanes move 11.6 MB,
+// ~3.46 us at 3.35 TB/s.  Positions are non-decreasing except at clamped
+// draws, so neighbouring threads take neighbouring lanes: their row reads
+// coalesce, and so does every write.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kMaxBlocks = 16;
+constexpr int kMaxBlocks = 16;    // ring blocks a shard
+constexpr int kMaxEntries = 256;  // (shard, block) descriptors a launch
 
-struct RingBlocks {
-  const float* ptr[kMaxBlocks];
-  long long stride[kMaxBlocks];  // floats between rows
-  int len[kMaxBlocks];           // lanes
-  int count;
+struct RingTable {
+  const float* ptr[kMaxEntries];  // entry shard * count + block
+  int stride[kMaxEntries];        // floats between rows
+  int len[kMaxBlocks];            // lanes of each block, the same on every shard
+  int count;                      // blocks a shard
 };
+// kernel parameters are limited to 4 KB
+static_assert(sizeof(RingTable) + 3 * sizeof(void*) <= 4096, "ring table over 4 KB");
 
-__global__ void ring_gather_kernel(RingBlocks blocks, const int* __restrict__ pos, int s,
-                                   float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= s) return;
-  int p = pos[t] < 0 ? 0 : pos[t];
+// Where position p of `shard`'s concatenation lies: its block's lane p, and
+// that block's row stride.
+__device__ __forceinline__ const float* locate(const RingTable& table, int shard, int p,
+                                               int& stride) {
+  p = p < 0 ? 0 : p;
   int b = 0;
-  while (b < blocks.count - 1 && p >= blocks.len[b]) {
-    p -= blocks.len[b];
+  while (b < table.count - 1 && p >= table.len[b]) {
+    p -= table.len[b];
     ++b;
   }
-  if (p >= blocks.len[b]) p = blocks.len[b] - 1;
-  const float* src = blocks.ptr[b] + p;
-  const long long stride = blocks.stride[b];
+  if (p >= table.len[b]) p = table.len[b] - 1;
+  const int e = shard * table.count + b;
+  stride = table.stride[e];
+  return table.ptr[e] + p;
+}
+
+// kLanes consecutive lanes a thread; with kVec (S % kLanes == 0) its
+// positions are read and its rows written as one vector each.
+template <int kLanes, bool kVec>
+__device__ __forceinline__ void store_row(float* row, int t0, int s, const float (&v)[kLanes]) {
+  if constexpr (kVec && kLanes == 4) {
+    *reinterpret_cast<float4*>(row + t0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kVec && kLanes == 2) {
+    *reinterpret_cast<float2*>(row + t0) = make_float2(v[0], v[1]);
+  } else {
 #pragma unroll
-  for (int r = 0; r < 12; ++r) out[(size_t)r * s + t] = src[r * stride];
-  out[(size_t)12 * s + t] = 0.0f;
-  out[(size_t)13 * s + t] = 0.0f;
-  out[(size_t)14 * s + t] = 0.0f;
-  out[(size_t)15 * s + t] = 1.0f;
+    for (int j = 0; j < kLanes; ++j)
+      if (kLanes == 1 || t0 + j < s) row[t0 + j] = v[j];
+  }
+}
+
+template <int kLanes, bool kVec>
+__global__ void __launch_bounds__(256)
+    ring_gather_kernel(const __grid_constant__ RingTable table, const int* __restrict__ pos,
+                       int s, float* __restrict__ out) {
+  const int shard = blockIdx.y;
+  const int t0 = (blockIdx.x * blockDim.x + threadIdx.x) * kLanes;
+  if (t0 >= s) return;
+  pos += (size_t)shard * s;
+  out += (size_t)shard * 16 * s;
+  int p[kLanes];
+  if constexpr (kVec && kLanes == 4) {
+    const int4 q = *reinterpret_cast<const int4*>(pos + t0);
+    p[0] = q.x, p[1] = q.y, p[2] = q.z, p[3] = q.w;
+  } else if constexpr (kVec && kLanes == 2) {
+    const int2 q = *reinterpret_cast<const int2*>(pos + t0);
+    p[0] = q.x, p[1] = q.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) p[j] = (kLanes == 1 || t0 + j < s) ? pos[t0 + j] : 0;
+  }
+  const float* src[kLanes];
+  int stride[kLanes];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) src[j] = locate(table, shard, p[j], stride[j]);
+  float v[12][kLanes];
+#pragma unroll
+  for (int r = 0; r < 12; ++r)
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) v[r][j] = __ldg(src[j] + (size_t)r * stride[j]);
+#pragma unroll
+  for (int r = 0; r < 12; ++r) store_row<kLanes, kVec>(out + (size_t)r * s, t0, s, v[r]);
+  float zero[kLanes], one[kLanes];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) zero[j] = 0.0f, one[j] = 1.0f;
+#pragma unroll
+  for (int r = 12; r < 15; ++r) store_row<kLanes, kVec>(out + (size_t)r * s, t0, s, zero);
+  store_row<kLanes, kVec>(out + (size_t)15 * s, t0, s, one);
+}
+
+template <int kLanes, bool kVec>
+void launch(const RingTable& table, int n_shards, const int* pos, int s, float* out, int threads,
+            cudaStream_t stream) {
+  const int per_block = threads * kLanes;
+  const dim3 grid((s + per_block - 1) / per_block, n_shards);
+  ring_gather_kernel<kLanes, kVec><<<grid, threads, 0, stream>>>(table, pos, s, out);
 }
 
 }  // namespace
 
-// ptrs, strides, lens: host arrays of `count` entries (1 <= count <= 16,
-// every len > 0); pos: device int32 (s,); out: device float32 (16, s).
-extern "C" int pfmpe_ring_gather(const void* const* ptrs, const long long* strides,
-                                 const int* lens, int count, const int* pos, int s, float* out,
-                                 void* stream) {
-  if (count < 1 || count > kMaxBlocks) return (int)cudaErrorInvalidValue;
+// ptrs, strides: host arrays of n_shards * count entries, shard-major
+// (1 <= count <= 16, n_shards * count <= 256); lens: host array of `count`
+// lane counts (each > 0); pos: device int32 (n_shards, s); out: device
+// float32 (n_shards, 16, s).  lanes (1, 2, 4), vec and threads (128, 256)
+// choose the design being measured.
+extern "C" int pfmpe_ring_gather(const void* const* ptrs, const int* strides, const int* lens,
+                                 int n_shards, int count, const int* pos, int s, float* out,
+                                 int lanes, int vec, int threads, void* stream) {
+  if (count < 1 || count > kMaxBlocks || n_shards < 1 || n_shards * count > kMaxEntries)
+    return (int)cudaErrorInvalidValue;
+  if (threads != 128 && threads != 256) return (int)cudaErrorInvalidValue;
   if (s <= 0) return (int)cudaSuccess;
-  RingBlocks blocks = {};
-  blocks.count = count;
-  for (int i = 0; i < count; ++i) {
-    if (lens[i] <= 0) return (int)cudaErrorInvalidValue;
-    blocks.ptr[i] = (const float*)ptrs[i];
-    blocks.stride[i] = strides[i];
-    blocks.len[i] = lens[i];
+  RingTable table = {};
+  table.count = count;
+  for (int b = 0; b < count; ++b) {
+    if (lens[b] <= 0) return (int)cudaErrorInvalidValue;
+    table.len[b] = lens[b];
   }
-  const int threads = 256;
-  ring_gather_kernel<<<(s + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      blocks, pos, s, out);
+  for (int e = 0; e < n_shards * count; ++e) {
+    table.ptr[e] = (const float*)ptrs[e];
+    table.stride[e] = strides[e];
+  }
+  // vectors need every shard's row starts aligned to the vector
+  const bool aligned = s % lanes == 0 && (uintptr_t)pos % (4 * lanes) == 0 &&
+                       (uintptr_t)out % (4 * lanes) == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (lanes == 1) {
+    launch<1, false>(table, n_shards, pos, s, out, threads, st);
+  } else if (lanes == 2) {
+    if (vec && aligned) launch<2, true>(table, n_shards, pos, s, out, threads, st);
+    else launch<2, false>(table, n_shards, pos, s, out, threads, st);
+  } else if (lanes == 4) {
+    if (vec && aligned) launch<4, true>(table, n_shards, pos, s, out, threads, st);
+    else launch<4, false>(table, n_shards, pos, s, out, threads, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

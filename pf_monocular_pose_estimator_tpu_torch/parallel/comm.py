@@ -38,6 +38,12 @@ class LocalMesh:
         """Shard i's rows go to shard (i + delta) mod P."""
         return torch.roll(x, delta, 0) if delta % self.size else x
 
+    def receive(self, x: torch.Tensor, delta: int) -> list[torch.Tensor]:
+        """What `ppermute(x, delta)` delivers, one tensor a local shard:
+        shard i receives shard (i - delta) mod P's rows, here a view of
+        them (no copy)."""
+        return [x[(i - delta) % self.size] for i in range(self.size)]
+
     def broadcast_from(self, x: torch.Tensor, rank: int) -> torch.Tensor:
         """Shard `rank`'s row of x (L, ...) -> (...), on every rank."""
         return x[rank]
@@ -72,6 +78,9 @@ class DistMesh:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return recv
+
+    def receive(self, x: torch.Tensor, delta: int) -> list[torch.Tensor]:
+        return [self.ppermute(x, delta)[0]]
 
     def broadcast_from(self, x: torch.Tensor, rank: int) -> torch.Tensor:
         out = x[0].contiguous().clone()

@@ -3,13 +3,14 @@
 Ports `pf/pallas_step.py::bank_layout_pin` as the reference's sharded
 resampler uses it (`parallel/resample.py:305-311`): the pin is an identity
 copy of the concatenated ring blocks ahead of `jnp.take`, and
-`bank_restore_pin` follows the gather.  What that chain computes is
-  out[r, t] = cat(blocks, 1)[r, take_pos[t]] for r < 12,
+`bank_restore_pin` follows the gather.  What that chain computes, shard by
+shard, is
+  out[l, r, t] = cat(blocks_l, 1)[r, take_pos[l, t]] for r < 12,
   rows 12-15 = (0, 0, 0, 1),
-which kernel H does in one launch from the blocks where they lie, never
-building the concatenation.  With one block and take_pos = 0..S-1 it
-returns the block over the constant rows: the two pins with no gather
-between them.
+which kernel H does in one launch for every local shard, from the blocks
+where they lie, never building a concatenation.  With one block and
+take_pos = 0..S-1 it returns the block over the constant rows: the two
+pins with no gather between them.
 """
 
 from __future__ import annotations
@@ -20,50 +21,88 @@ import torch
 
 from ..utils import cuda_lib
 
-MAX_BLOCKS = 16
+MAX_BLOCKS = 16  # ring blocks a shard
+# (shard, block) descriptors a launch: pointer and row stride, 3 KB of the
+# kernel's 4 KB of parameters
+MAX_ENTRIES = 256
+# the design being measured: lanes a thread (1, 2, 4), vector positions and
+# stores (where S allows), threads a block (128, 256)
+DESIGN = dict(lanes=4, vec=True, threads=256)
+
+
+def _as_shards(blocks, take_pos: torch.Tensor):
+    """-> (a list of block lists, one a shard; (L, S) positions; whether
+    one shard came unbatched: a list of blocks with (S,) positions)."""
+    if take_pos.dim() == 1:
+        return [list(blocks)], take_pos[None], True
+    return [list(shard) for shard in blocks], take_pos, False
 
 
 def ring_gather_plain(blocks, take_pos: torch.Tensor) -> torch.Tensor:
-    """Plain version of `ring_gather`: concatenate, select, constant rows."""
-    s = take_pos.shape[0]
-    top = torch.cat(list(blocks), dim=1).index_select(1, take_pos)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)[:, None]
-    return torch.cat([top, bottom.expand(4, s)])
+    """Plain version of `ring_gather`: per shard concatenate, select, constant rows."""
+    shards, pos, single = _as_shards(blocks, take_pos)
+    s = pos.shape[1]
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32,
+                          device=pos.device)[:, None].expand(4, s)
+    out = torch.stack([torch.cat([torch.cat(shard, dim=1).index_select(1, p), bottom])
+                       for shard, p in zip(shards, pos)])
+    return out[0] if single else out
 
 
 def ring_gather(blocks, take_pos: torch.Tensor) -> torch.Tensor:
-    """Gather S lanes at `take_pos` (int32 positions in the concatenation of
-    `blocks` along the lanes) -> (16, S).  blocks: 1 to 16 float32 tensors
-    of 12 rows whose lanes are contiguous; rows may be strided, so the top
-    of a (16, S) bank or a lane slice of it goes in uncopied.  Positions
-    must lie inside the concatenation.  Kernel #7 of the port (H)."""
-    blocks = list(blocks)
-    if not 1 <= len(blocks) <= MAX_BLOCKS:
-        raise ValueError(f"ring_gather: takes 1 to {MAX_BLOCKS} blocks")
-    for b in blocks:
-        if b.dtype != torch.float32 or b.dim() != 2 or b.shape[0] != 12 or b.shape[1] < 1:
-            raise ValueError("ring_gather: each block must be a (12, len >= 1) float32 tensor")
-        if b.stride(1) != 1 and b.shape[1] > 1:
-            raise ValueError("ring_gather: a block's lanes must be contiguous")
-        if b.device != take_pos.device:
-            raise ValueError("ring_gather: all tensors must be on one device")
-    if take_pos.dtype != torch.int32 or take_pos.dim() != 1:
-        raise ValueError("ring_gather: positions must be a 1-D int32 tensor")
-    if take_pos.device.type == "cpu":
+    """Gather every local shard's S lanes in one launch -> (L, 16, S).
+
+    take_pos: (L, S) int32, positions in the concatenation along the lanes
+    of that shard's blocks.  blocks: L lists (one a shard) of 1 to 16
+    float32 tensors of 12 rows whose lanes are contiguous; rows may be
+    strided and a block may start at any lane, so the top of a (16, S) bank
+    or a lane slice of another shard's goes in uncopied.  Block b has the
+    same lane count on every shard.  L x blocks is at most 256.  Positions
+    must lie inside the concatenation.  One shard may also come unbatched:
+    a list of blocks with (S,) positions -> (16, S).  Kernel #7 of the port
+    (H)."""
+    if take_pos.dtype != torch.int32 or take_pos.dim() not in (1, 2):
+        raise ValueError("ring_gather: positions must be an int32 tensor of (S,) or (L, S)")
+    shards, pos, single = _as_shards(blocks, take_pos)
+    n_shards, s = pos.shape
+    count = len(shards[0]) if shards else 0
+    if len(shards) != n_shards or n_shards < 1:
+        raise ValueError(f"ring_gather: {len(shards)} block lists for {n_shards} shards")
+    if not 1 <= count <= MAX_BLOCKS:
+        raise ValueError(f"ring_gather: takes 1 to {MAX_BLOCKS} blocks a shard")
+    if n_shards * count > MAX_ENTRIES:
+        raise ValueError(f"ring_gather: {n_shards} shards x {count} blocks is over the "
+                         f"descriptor table's {MAX_ENTRIES} entries")
+    lens = [b.shape[-1] for b in shards[0]]
+    for shard in shards:
+        if len(shard) != count:
+            raise ValueError("ring_gather: every shard takes the same number of blocks")
+        for b, n in zip(shard, lens):
+            if b.dtype != torch.float32 or b.dim() != 2 or b.shape[0] != 12 or b.shape[1] < 1:
+                raise ValueError("ring_gather: each block must be a (12, len >= 1) float32 tensor")
+            if b.shape[1] != n:
+                raise ValueError("ring_gather: block b has the same lanes on every shard")
+            if b.stride(1) != 1 and b.shape[1] > 1:
+                raise ValueError("ring_gather: a block's lanes must be contiguous")
+            if b.stride(0) >= 2 ** 31:
+                raise ValueError("ring_gather: a block's row stride must fit in 32 bits")
+            if b.device != pos.device:
+                raise ValueError("ring_gather: all tensors must be on one device")
+    if pos.device.type == "cpu":
         return ring_gather_plain(blocks, take_pos)
-    cuda_lib.require_cuda("ring_gather", take_pos)
+    cuda_lib.require_cuda("ring_gather", pos)
     lib = cuda_lib.library()
-    n_blocks = len(blocks)
-    s = take_pos.shape[0]
-    out = torch.empty((16, s), dtype=torch.float32, device=take_pos.device)
-    ptrs = (ctypes.c_void_p * n_blocks)(*(b.data_ptr() for b in blocks))
-    strides = (ctypes.c_longlong * n_blocks)(*(b.stride(0) for b in blocks))
-    lens = (ctypes.c_int * n_blocks)(*(b.shape[1] for b in blocks))
-    code = lib.pfmpe_ring_gather(ptrs, strides, lens, n_blocks, take_pos.data_ptr(), s,
-                                 out.data_ptr(), cuda_lib.stream_ptr(take_pos))
+    entries = [b for shard in shards for b in shard]
+    out = torch.empty((n_shards, 16, s), dtype=torch.float32, device=pos.device)
+    ptrs = (ctypes.c_void_p * len(entries))(*(b.data_ptr() for b in entries))
+    strides = (ctypes.c_int * len(entries))(*(b.stride(0) for b in entries))
+    c_lens = (ctypes.c_int * count)(*lens)
+    code = lib.pfmpe_ring_gather(ptrs, strides, c_lens, n_shards, count, pos.data_ptr(), s,
+                                 out.data_ptr(), DESIGN["lanes"], int(DESIGN["vec"]),
+                                 DESIGN["threads"], cuda_lib.stream_ptr(pos))
     ring_gather.launches += 1
     cuda_lib.check(code, "pfmpe_ring_gather")
-    return out
+    return out[0] if single else out
 
 
 ring_gather.launches = 0

@@ -14,10 +14,12 @@ gather of the bank.
      and its CDF block to its ring neighbours (whole blocks, or at reach 1
      the head and tail windows), counts for every draw the CDF entries of
      each block below it, and gathers the ancestor columns from the blocks
-     with kernel H (`gather_kernel.ring_gather`).  Draws whose ancestor lies
-     beyond the reach or the window take the shard's most-copied particle
-     and are counted in `clipped`; results are exact across widths when
-     `clipped == 0`.
+     with kernel H (`gather_kernel.ring_gather`), one launch for every
+     local shard.  On a local mesh the bank blocks are the other shards'
+     rows where they lie (`LocalMesh.receive`), never copied.  Draws whose
+     ancestor lies beyond the reach or the window take the shard's
+     most-copied particle and are counted in `clipped`; results are exact
+     across widths when `clipped == 0`.
 
 The shard body runs once over the leading axis of local shards
 (`comm`), so one process holding P shards and P ranks holding one each
@@ -134,14 +136,15 @@ def _resample_shards(mesh, key, w, bank16, n: int, reach: int, chunk: int, windo
         # holds its forward neighbour's head; the tail window travels
         # forward with one CDF entry ahead of it, so "ancestor before the
         # window" shows.  The wrap-around edges carry no reachable draw.
-        blocks_bank = [top12, mesh.ppermute(top12[:, :, :wlen], -1),
-                       mesh.ppermute(top12[:, :, s - wlen:], 1)]
+        received = [[top12[i] for i in range(n_local)], mesh.receive(top12[:, :, :wlen], -1),
+                    mesh.receive(top12[:, :, s - wlen:], 1)]
         blocks_cdf = [cdf_n, mesh.ppermute(cdf_n[:, :wlen], -1),
                       mesh.ppermute(cdf_n[:, s - wlen - 1:], 1)]
     else:
         deltas = ring_deltas(reach, p)
-        blocks_bank = [mesh.ppermute(top12, d) for d in deltas]
+        received = [mesh.receive(top12, d) for d in deltas]
         blocks_cdf = [mesh.ppermute(cdf_n, d) for d in deltas]
+    blocks_bank = [list(shard) for shard in zip(*received)]  # per local shard
 
     # -- 5. per draw, the entries of each block below it
     u_key = _order_key(u)
@@ -173,9 +176,8 @@ def _resample_shards(mesh, key, w, bank16, n: int, reach: int, chunk: int, windo
     local_best = torch.argmax(counts, dim=1)
     take_pos = torch.where(found, take_pos, local_best[:, None].to(torch.int32))
 
-    # -- 7. one gather per shard from the blocks where they lie (kernel H)
-    out = torch.stack([ring_gather([b[i] for b in blocks_bank], take_pos[i].contiguous())
-                       for i in range(n_local)])
+    # -- 7. one gather for every local shard from the blocks where they lie (kernel H)
+    out = ring_gather(blocks_bank, take_pos)
 
     # -- most-copied particle and clip count, globally: one packed all_gather
     local_max = counts.gather(1, local_best[:, None])[:, 0].to(torch.int64)

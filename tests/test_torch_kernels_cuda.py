@@ -447,40 +447,52 @@ def test_resample_gather_exact(dev):
     assert torch.equal(got, sk.resample_gather_plain(bank, anc))
 
 
+@pytest.mark.parametrize("s", [25_000, 4099, 45])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
 @pytest.mark.parametrize("profile", ["window", "full_blocks", "identity"])
-def test_ring_gather_exact(dev, profile):
-    """Kernel H at the shapes of N = 100,000 over P = 4: the own block is the
-    top of a (16, S) bank (rows strided, uncopied), positions land in every
-    block, and clamped draws break their order."""
+def test_ring_gather_exact(dev, profile, shards, s):
+    """Kernel H, one launch over L shards, at S = 25,000 (N = 100,000 over
+    P = 4) and at shard sizes that rule out vector stores.  Each shard's own
+    block is the top of its (16, S) bank and the others are views of the
+    other shards' rows, the window profile's tail at an unaligned lane
+    offset; positions land in every block, and clamped draws break their
+    order."""
     rng = np.random.default_rng(7)
-    s, w = 25_000, 6_250
-    bank = torch.from_numpy(rng.normal(size=(16, s)).astype(np.float32)).to(dev)
-    other = lambda n: torch.from_numpy(rng.normal(size=(12, n)).astype(np.float32)).to(dev)
-    blocks = {"window": [bank[:12], other(w), other(w)],
-              "full_blocks": [bank[:12]] + [other(s) for _ in range(4)],
-              "identity": [bank[:12]]}[profile]
-    total = sum(b.shape[1] for b in blocks)
+    mesh = LocalMesh(shards)
+    bank = torch.from_numpy(rng.normal(size=(shards, 16, s)).astype(np.float32)).to(dev)
+    top12 = bank[:, :12]
+    w = s // 4
+    received = {"window": [list(top12), mesh.receive(top12[:, :, :w], -1),
+                           mesh.receive(top12[:, :, s - w:], 1)],
+                "full_blocks": [mesh.receive(top12, d) for d in (0, -1, 1, -2, 2)],
+                "identity": [list(top12)]}[profile]
+    blocks = [list(shard) for shard in zip(*received)]
+    total = sum(b.shape[1] for b in blocks[0])
     if profile == "identity":
-        pos = torch.arange(s, dtype=torch.int32, device=dev)
+        pos = torch.arange(s, dtype=torch.int32).repeat(shards, 1)
     else:
-        pos = torch.from_numpy(np.sort(rng.integers(0, total, s)).astype(np.int32))
-        pos[::97] = int(pos[s // 2])
-        pos = pos.to(dev)
-        assert int(pos.min()) < s <= total - blocks[-1].shape[1] <= int(pos.max())
+        pos = np.sort(rng.integers(0, total, (shards, s)), axis=1).astype(np.int32)
+        pos[:, ::97] = pos[:, s // 2:s // 2 + 1]
+        pos[:, 0], pos[:, -1] = 0, total - 1
+        pos = torch.from_numpy(pos)
+    pos = pos.to(dev)
     before = hk.ring_gather.launches
     got = hk.ring_gather(blocks, pos)
     torch.cuda.synchronize()
     assert hk.ring_gather.launches == before + 1
+    assert got.shape == (shards, 16, s)
     assert torch.equal(got, hk.ring_gather_plain(blocks, pos))
     if profile == "identity":
-        assert torch.equal(got[:12], bank[:12])
-        assert got[12:].T.unique(dim=0).tolist() == [[0.0, 0.0, 0.0, 1.0]]
+        assert torch.equal(got[:, :12], bank[:, :12])
+        assert got[:, 12:].transpose(1, 2).reshape(-1, 4).unique(dim=0).tolist() == \
+            [[0.0, 0.0, 0.0, 1.0]]
 
 
 @pytest.mark.parametrize("window", ["auto", None])
 def test_sharded_resampler_exact_across_widths(dev, window):
-    """The ring resampler on the card (kernel H per shard) equals the
-    single-device sort resampler + kernel C at every width."""
+    """The ring resampler on the card (kernel H, one launch over the local
+    shards) equals the single-device sort resampler + kernel C at every
+    width."""
     rng = np.random.default_rng(8)
     n = 20_000
     bank, prm = _pf_inputs(dev, n, rng)
@@ -494,7 +506,7 @@ def test_sharded_resampler_exact_across_widths(dev, window):
         out = make_distributed_resampler(mesh, n, payload_window=window)(
             prng.prng_key(5), shard_lanes(mesh, w), shard_lanes(mesh, bank))
         torch.cuda.synchronize()
-        assert hk.ring_gather.launches == before + p
+        assert hk.ring_gather.launches == before + 1
         assert torch.equal(unshard_lanes(mesh, out.resampled), want)
         assert torch.equal(unshard_lanes(mesh, out.counts).long(), counts.long())
         assert int(out.most) == int(most) and int(out.clipped) == 0

@@ -222,3 +222,140 @@ def test_ring_gather_takes_strided_blocks_and_rejects_bad_input():
         hk.ring_gather([bank[:12]] * 17, pos)
     with pytest.raises(ValueError):
         hk.ring_gather([], pos)
+
+
+# ------------------------------------------- kernel H over every local shard
+def _ring_shards(profile, shards, s, rng):
+    """A sharded bank (L, 16, S) and each shard's ring blocks as the
+    resampler builds them on a local mesh: views of the other shards' rows
+    (the window profile's tail starts at an unaligned lane), with (L, S)
+    positions that land in every block and clamped draws that break their
+    order."""
+    mesh = LocalMesh(shards)
+    bank = torch.from_numpy(rng.normal(size=(shards, 16, s)).astype(np.float32))
+    top12 = bank[:, :12]
+    if profile == "window":
+        w = s // 4
+        received = [list(top12), mesh.receive(top12[:, :, :w], -1),
+                    mesh.receive(top12[:, :, s - w:], 1)]
+    else:  # all reach: whole blocks from up to three shards each way
+        received = [mesh.receive(top12, d) for d in ring_deltas(3, shards)]
+    blocks = [list(shard) for shard in zip(*received)]
+    total = sum(b.shape[1] for b in blocks[0])
+    pos = np.sort(rng.integers(0, total, (shards, s)), axis=1).astype(np.int32)
+    pos[:, ::97] = pos[:, s // 2:s // 2 + 1]
+    pos[:, 0], pos[:, -1] = 0, total - 1
+    return bank, blocks, torch.from_numpy(pos)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+@pytest.mark.parametrize("profile", ["window", "all_reach"])
+def test_ring_gather_batched_is_the_pinned_gather(profile, shards):
+    """One call over L shards equals, shard by shard, the reference's chain
+    (concatenate, `jnp.take`, the constant rows) and the one-shard call."""
+    _, blocks, pos = _ring_shards(profile, shards, 1000, np.random.default_rng(5))
+    got = hk.ring_gather(blocks, pos)
+    assert got.shape == (shards, 16, 1000)
+    for i in range(shards):
+        cat = jnp.concatenate([jnp.asarray(b.numpy()) for b in blocks[i]], axis=1)
+        want = np.concatenate([np.asarray(jnp.take(cat, jnp.asarray(pos[i].numpy()), axis=1)),
+                               np.zeros((3, 1000), np.float32), np.ones((1, 1000), np.float32)])
+        np.testing.assert_array_equal(got[i].numpy(), want)
+        assert torch.equal(hk.ring_gather(blocks[i], pos[i]), got[i])
+    assert torch.equal(hk.ring_gather_plain(blocks, pos), got)
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("reach", [1, 2, 3])
+def test_receive_equals_ppermute(reach, p):
+    """`LocalMesh.receive` gives, for every delta of the ring, ppermute's
+    rows shard by shard, as views of the sent tensor (whole blocks and the
+    head and tail windows)."""
+    mesh = LocalMesh(p)
+    x = torch.arange(p * 3 * 10, dtype=torch.float32).reshape(p, 3, 10)
+    for sent in (x, x[:, :, :4], x[:, :, 7:]):
+        for d in ring_deltas(reach, p):
+            got, want = mesh.receive(sent, d), mesh.ppermute(sent, d)
+            assert len(got) == p
+            for i in range(p):
+                assert torch.equal(got[i], want[i]), f"delta {d}, shard {i}"
+                assert got[i].untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("window", ["auto", None])
+def test_local_mesh_gathers_once_from_views(monkeypatch, window):
+    """A ring resampling on a local mesh calls kernel H once for all its
+    shards, and every bank block it hands over is a view of the bank: no
+    copy of the 12 rows is made before the gather."""
+    from pf_monocular_pose_estimator_tpu_torch.parallel import resample as resample_mod
+
+    calls = []
+
+    def spy(blocks, take_pos):
+        calls.append((blocks, take_pos))
+        return hk.ring_gather(blocks, take_pos)
+
+    monkeypatch.setattr(resample_mod, "ring_gather", spy)
+    rng = np.random.default_rng(6)
+    p, n = 4, 2048
+    mesh = LocalMesh(p)
+    bank = shard_lanes(mesh, torch.from_numpy(_bank(rng, n)))
+    w = shard_lanes(mesh, torch.from_numpy(_weights("random", rng, n)))
+    out = make_distributed_resampler(mesh, n, reach=1 if window else 3,
+                                     payload_window=window)((0, 7), w, bank)
+    assert len(calls) == 1
+    blocks, take_pos = calls[0]
+    assert len(blocks) == p and take_pos.shape == (p, n // p)
+    assert len(blocks[0]) == (3 if window else 4)
+    for shard in blocks:
+        for b in shard:
+            assert b.untyped_storage().data_ptr() == bank.untyped_storage().data_ptr()
+    assert out.resampled.shape == (p, 16, n // p) and int(out.clipped) == 0
+
+
+def test_ring_gather_batched_takes_offset_views():
+    """Blocks at arbitrary lane offsets of wider tensors, rows strided."""
+    rng = np.random.default_rng(8)
+    wide = torch.from_numpy(rng.normal(size=(3, 16, 100)).astype(np.float32))
+    blocks = [[wide[i, :12, 3 + i:48 + i], wide[(i + 1) % 3, 1:13, 61:66]] for i in range(3)]
+    pos = torch.from_numpy(rng.integers(0, 50, (3, 45)).astype(np.int32))
+    want = hk.ring_gather_plain([[b.clone() for b in shard] for shard in blocks], pos)
+    assert torch.equal(hk.ring_gather(blocks, pos), want)
+
+
+def _bad_ring_input(case):
+    blk = lambda n=8: torch.zeros(12, n)
+    pos = torch.zeros((2, 8), dtype=torch.int32)
+    return {
+        "pos_int64": ([[blk()], [blk()]], pos.long()),
+        "pos_3d": ([[blk()], [blk()]], pos[None]),
+        "shards_mismatch": ([[blk()]] * 3, pos),
+        "no_blocks": ([[], []], pos),
+        "17_blocks": ([[blk()] * 17] * 2, pos),
+        "table_over_limit": ([[blk()] * 16] * 17, torch.zeros((17, 8), dtype=torch.int32)),
+        "blocks_differ_by_shard": ([[blk(), blk()], [blk()]], pos),
+        "lanes_differ_by_shard": ([[blk(8)], [blk(9)]], pos),
+        "16_rows": ([[torch.zeros(16, 8)], [torch.zeros(16, 8)]], pos),
+        "float64": ([[blk().double()], [blk().double()]], pos),
+        "lanes_strided": ([[torch.zeros(12, 16)[:, ::2]], [blk()]], pos),
+        "empty_block": ([[blk(0)], [blk(0)]], pos),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["pos_int64", "pos_3d", "shards_mismatch", "no_blocks",
+                                  "17_blocks", "table_over_limit", "blocks_differ_by_shard",
+                                  "lanes_differ_by_shard", "16_rows", "float64", "lanes_strided",
+                                  "empty_block"])
+def test_ring_gather_batched_rejects_bad_input(case):
+    blocks, pos = _bad_ring_input(case)
+    with pytest.raises(ValueError):
+        hk.ring_gather(blocks, pos)
+
+
+def test_ring_gather_table_limit_is_exact():
+    """16 shards of 16 blocks fill the descriptor table and still gather."""
+    rng = np.random.default_rng(9)
+    blocks = [[torch.from_numpy(rng.normal(size=(12, 4)).astype(np.float32))] * 16] * 16
+    pos = torch.from_numpy(rng.integers(0, 64, (16, 8)).astype(np.int32))
+    assert len(blocks) * len(blocks[0]) == hk.MAX_ENTRIES
+    assert torch.equal(hk.ring_gather(blocks, pos), hk.ring_gather_plain(blocks, pos))
