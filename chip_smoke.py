@@ -604,6 +604,23 @@ def ring_positions(p: int, s: int, total: int, gen, device):
     return pos.to(device)
 
 
+def ring_ancestor_positions(anc, p: int, deltas):
+    """(P, S) int32: where the ancestors `anc` (N,) of the output lanes lie in
+    each shard's concatenation of the blocks at `deltas`, as the ring
+    resampler computes them when no draw is clipped: the main path's
+    positions, mostly in the shard's own block and non-decreasing."""
+    import torch
+
+    s = anc.shape[0] // p
+    src, lane = (anc // s).reshape(p, s), (anc % s).reshape(p, s)
+    shard = torch.arange(p, device=anc.device)[:, None]
+    slot = torch.full_like(src, -1)
+    for k, d in enumerate(deltas):
+        slot = torch.where(src == (shard - d) % p, k, slot)
+    assert bool((slot >= 0).all()), "an ancestor lies beyond the ring's blocks"
+    return (slot * s + lane).to(torch.int32)
+
+
 def ring_bound(lanes: int):
     """Kernel H's bound over `lanes` output lanes: each reads a 4-byte
     position and 12 rows (48 bytes) and writes 16 rows (64 bytes), once;
@@ -613,11 +630,12 @@ def ring_bound(lanes: int):
 
 def check_ring_gather(device, bank_k, wn, want_c):
     """Kernel H, one launch over the 4 shards of N = 100,000, against its
-    plain version on three profiles of ring blocks (views of the other
+    plain version on four profiles of ring blocks (views of the other
     shards' rows, as the resampler hands them over), then the ring resampler
     on a local mesh at P = 1, 2, 4, 8 against the single-device result
     `want_c` of the same weights `wn`; returns H's table row, timed on the
-    blocks of the ring that reaches every shard (the sharded replay's)."""
+    blocks of the ring that reaches every shard (the sharded replay's) at
+    the positions of the stratified ancestors of `wn`."""
     import torch
     from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
     from pf_monocular_pose_estimator_tpu_torch.parallel.comm import (LocalMesh, shard_lanes,
@@ -630,6 +648,8 @@ def check_ring_gather(device, bank_k, wn, want_c):
     n, p = bank_k.shape[1], MESH_SHARDS
     s, w = n // p, n // p // 4
     gen = torch.Generator().manual_seed(1)
+    key = prng.prng_key(3)
+    anc, counts, most = stratified_resample_soa(key, wn)
     mesh = LocalMesh(p)
     shards = shard_lanes(mesh, bank_k)  # (4, 16, S)
     top12 = shards[:, :12]
@@ -637,6 +657,7 @@ def check_ring_gather(device, bank_k, wn, want_c):
         "window": [list(shards[:, :12]), mesh.receive(top12[:, :, :w], -1),
                    mesh.receive(top12[:, :, s - w:], 1)],
         "all_reach": [mesh.receive(top12, d) for d in ring_deltas(p - 1, p)],
+        "ancestors": [mesh.receive(top12, d) for d in ring_deltas(p - 1, p)],
         "identity": [list(shards[:, :12])],
     }
     for name, received in profiles.items():
@@ -644,6 +665,8 @@ def check_ring_gather(device, bank_k, wn, want_c):
         total = sum(b.shape[1] for b in blocks[0])
         if name == "identity":
             pos = torch.arange(s, dtype=torch.int32, device=device).repeat(p, 1)
+        elif name == "ancestors":
+            pos = ring_ancestor_positions(anc, p, ring_deltas(p - 1, p))
         else:
             pos = ring_positions(p, s, total, gen, device)
         before = hk.ring_gather.launches
@@ -654,7 +677,7 @@ def check_ring_gather(device, bank_k, wn, want_c):
         assert torch.equal(got, want), f"ring_gather differs from plain ({name})"
         if name == "identity":
             assert torch.equal(got[:, :12], shards[:, :12]), "ring_gather identity changed the block"
-        if name == "all_reach":
+        if name == "ancestors":
             timed = (blocks, pos)
         print(f"[kernels] ring_gather {name} P={p} S={s} ({len(blocks[0])} blocks a shard, "
               f"{total} lanes): exact, one launch")
@@ -671,13 +694,11 @@ def check_ring_gather(device, bank_k, wn, want_c):
                library_ms=time_ms(lambda: cat12.index_select(1, pos64)),
                device_ms=device_time_ms(lambda: hk.ring_gather(blocks, pos)),
                library_device_ms=device_time_ms(lambda: cat12.index_select(1, pos64)))
-    print(f"[timing] ring_gather P={p} S={s}, one launch, on the card alone (CUDA graph of 20 "
-          f"launches): {row['device_ms'] * 1e3:.2f} us, index_select over the concatenation "
-          f"{row['library_device_ms'] * 1e3:.2f} us")
+    print(f"[timing] ring_gather P={p} S={s} at the ancestors' positions, one launch, on the "
+          f"card alone (CUDA graph of 20 launches): {row['device_ms'] * 1e3:.2f} us, index_select "
+          f"over the concatenation {row['library_device_ms'] * 1e3:.2f} us")
 
     # the ring resampler across widths against the single-device sort path + kernel C
-    key = prng.prng_key(3)
-    _, counts, most = stratified_resample_soa(key, wn)
     for p in (1, 2, 4, 8):
         mesh = LocalMesh(p)
         resample = make_distributed_resampler(mesh, n)
@@ -734,9 +755,11 @@ def ring_timings(device, batched: bool) -> dict:
     """Kernel H and the ring resampler at N = 100,000 and 1,000,000 over a
     local mesh of 4 shards, every block reaching every shard (SHARDED): H as
     four one-shard launches and, with `batched`, as one launch over the four
-    shards, each against its plain version and timed on the card alone (CUDA
-    graphs of 20 calls), beside `index_select` over the concatenation and
-    H's bound; then the device time of one whole ring resampling
+    shards, at the positions of stratified ancestors (and, for the check
+    alone, at random positions over every block), each against its plain
+    version and timed on the card alone (CUDA graphs of 20 calls), beside
+    `index_select` over the concatenation and H's bound; then the device
+    time of one whole ring resampling
     (torch.profiler, the union of its device spans), also on the reference's
     default ring.  Uses only what a checkout from before the batched launch
     has too: `python3 chip_smoke.py --ring-only` runs it (without `batched`)
@@ -746,10 +769,12 @@ def ring_timings(device, batched: bool) -> dict:
     from pf_monocular_pose_estimator_tpu_torch.parallel.comm import LocalMesh, shard_lanes
     from pf_monocular_pose_estimator_tpu_torch.parallel.resample import (make_distributed_resampler,
                                                                          ring_deltas)
+    from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
     from pf_monocular_pose_estimator_tpu_torch.utils import prng
 
     p, out = MESH_SHARDS, {}
     mesh = LocalMesh(p)
+    key = prng.prng_key(3)
     for n in (N_PARTICLES, N_LARGE):
         s = n // p
         gen = torch.Generator().manual_seed(4)
@@ -759,12 +784,21 @@ def ring_timings(device, batched: bool) -> dict:
         bank = bank.to(device)
         shards = shard_lanes(mesh, bank)
         blocks = ring_blocks(shards, ring_deltas(p - 1, p))
-        pos = ring_positions(p, s, p * s, gen, device)
-        want = torch.stack([hk.ring_gather_plain(blocks[i], pos[i]) for i in range(p)])
+        spread = ring_positions(p, s, p * s, gen, device)
+        pos = ring_ancestor_positions(stratified_resample_soa(key, wts)[0], p,
+                                      ring_deltas(p - 1, p))
         per_shard = lambda: [hk.ring_gather(blocks[i], pos[i]) for i in range(p)]
-        got = torch.stack(per_shard())
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), f"ring_gather, one launch a shard, differs at N={n}"
+        for check in (spread, pos):
+            want = torch.stack([hk.ring_gather_plain(blocks[i], check[i]) for i in range(p)])
+            got = torch.stack([hk.ring_gather(blocks[i], check[i]) for i in range(p)])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"ring_gather, one launch a shard, differs at N={n}"
+            if batched:
+                before = hk.ring_gather.launches
+                got = hk.ring_gather(blocks, check)
+                torch.cuda.synchronize()
+                assert hk.ring_gather.launches == before + 1 and torch.equal(got, want), \
+                    f"ring_gather over {p} shards differs from plain at N={n}"
         cat12 = torch.cat([torch.cat(shard, 1) for shard in blocks], 1)
         pos64 = (pos.long() + torch.arange(p, device=device)[:, None] * p * s).reshape(-1)
         row = {"one_launch_a_shard_device_us": round(device_time_ms(per_shard) * 1e3, 2),
@@ -772,14 +806,8 @@ def ring_timings(device, batched: bool) -> dict:
                    lambda: cat12.index_select(1, pos64)) * 1e3, 2),
                "bound_us": round(ring_bound(n)[0] * 1e3, 2)}
         if batched:
-            before = hk.ring_gather.launches
-            got = hk.ring_gather(blocks, pos)
-            torch.cuda.synchronize()
-            assert hk.ring_gather.launches == before + 1 and torch.equal(got, want), \
-                f"ring_gather over {p} shards differs from plain at N={n}"
             row["one_launch_device_us"] = round(device_time_ms(
                 lambda: hk.ring_gather(blocks, pos)) * 1e3, 2)
-        key = prng.prng_key(3)
         w_sh, b_sh = shard_lanes(mesh, wts), shard_lanes(mesh, bank)
         for ring, kwargs in (("all_reach", dict(reach=p - 1, payload_window=None)),
                              ("default_ring", {})):
@@ -794,23 +822,31 @@ def ring_timings(device, batched: bool) -> dict:
 def ring_design_sweep(device):
     """Kernel H's design against its other values (lanes a thread, vector
     positions and stores, threads a block), one launch over the 4 shards at
-    N = 100,000 and 1,000,000, each held to the plain version bit for bit;
-    device µs from CUDA graphs of 20 launches."""
+    the positions of stratified ancestors at N = 100,000 and 1,000,000 and
+    at random positions over every block at 1,000,000, each held to the
+    plain version bit for bit; device µs from CUDA graphs of 20 launches."""
     import torch
     from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
     from pf_monocular_pose_estimator_tpu_torch.parallel.comm import LocalMesh, shard_lanes
     from pf_monocular_pose_estimator_tpu_torch.parallel.resample import ring_deltas
+    from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
+    from pf_monocular_pose_estimator_tpu_torch.utils import prng
 
     p, built = MESH_SHARDS, dict(hk.DESIGN)
     designs = [dict(lanes=1, vec=False, threads=t) for t in (128, 256)]
     designs += [dict(lanes=l, vec=v, threads=t) for l in (2, 4) for v in (True, False)
                 for t in (128, 256)]
     inputs = []
-    for n in (N_PARTICLES, N_LARGE):
+    for n, kind in ((N_PARTICLES, "ancestors"), (N_LARGE, "ancestors"), (N_LARGE, "spread")):
         gen = torch.Generator().manual_seed(5)
         shards = shard_lanes(LocalMesh(p), torch.randn(16, n, generator=gen).to(device))
         blocks = ring_blocks(shards, ring_deltas(p - 1, p))
-        pos = ring_positions(p, n // p, n, gen, device)
+        if kind == "spread":
+            pos = ring_positions(p, n // p, n, gen, device)
+        else:
+            wts = torch.softmax(0.8 * torch.randn(n, generator=gen), 0).to(device)
+            pos = ring_ancestor_positions(stratified_resample_soa(prng.prng_key(3), wts)[0], p,
+                                          ring_deltas(p - 1, p))
         inputs.append((n, blocks, pos, hk.ring_gather_plain(blocks, pos)))
     times = {}
     try:
@@ -827,7 +863,8 @@ def ring_design_sweep(device):
     finally:
         hk.DESIGN = built
     print(f"[report] {card_line()}: ring_gather designs, one launch over {p} shards, N = "
-          f"{N_PARTICLES} and {N_LARGE}, on the card alone (us; as built {built}): {times}")
+          f"{N_PARTICLES} and {N_LARGE} at the ancestors' positions and {N_LARGE} spread, on the "
+          f"card alone (us; as built {built}): {times}")
     return times
 
 
@@ -1026,10 +1063,11 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
     registers of B and E at the main path's M = 5) and the device time of
     each launch of kernels A, B, D, E and H on their main-path inputs (H:
     one launch over the 4 shards of B's bank, every block reaching every
-    shard)."""
-    import torch
+    shard, at the positions of the stratified ancestors of B's weights)."""
     from pf_monocular_pose_estimator_tpu_torch.parallel.comm import LocalMesh, shard_lanes
     from pf_monocular_pose_estimator_tpu_torch.parallel.resample import ring_deltas
+    from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
+    from pf_monocular_pose_estimator_tpu_torch.utils import prng
 
     greedy_regs = {}
     for src, name, regs, frame, stores, loads in ptxas_report(cuda_lib):
@@ -1047,10 +1085,10 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
     bank, prm_b, keys, _ = pf_inputs(d, cam, markers, device)
     bank_e = sk.pf_step(bank, prm_b, keys, 5, 16)[0]
     wprm = prm_b[76:].contiguous()
-    p = MESH_SHARDS
+    p, w_e = MESH_SHARDS, sk.pf_step(bank, prm_b, keys, 5, 16)[1]
+    anc = stratified_resample_soa(prng.prng_key(3), w_e / w_e.sum())[0]
     blocks = ring_blocks(shard_lanes(LocalMesh(p), bank_e), ring_deltas(p - 1, p))
-    pos = ring_positions(p, N_PARTICLES // p, N_PARTICLES, torch.Generator().manual_seed(6),
-                         device)
+    pos = ring_ancestor_positions(anc, p, ring_deltas(p - 1, p))
     # one trace for all five: a run's later traces have come back without device time
     times = launch_times_us(lambda: (dk.detect_stats(crop, prm, 5, True, 12, 16),
                                      rk.gn_refine(*gn_args, 25, 1e-4),
