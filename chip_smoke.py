@@ -819,55 +819,6 @@ def ring_timings(device, batched: bool) -> dict:
     return out
 
 
-def ring_design_sweep(device):
-    """Kernel H's design against its other values (lanes a thread, vector
-    positions and stores, threads a block), one launch over the 4 shards at
-    the positions of stratified ancestors at N = 100,000 and 1,000,000 and
-    at random positions over every block at 1,000,000, each held to the
-    plain version bit for bit; device µs from CUDA graphs of 20 launches."""
-    import torch
-    from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
-    from pf_monocular_pose_estimator_tpu_torch.parallel.comm import LocalMesh, shard_lanes
-    from pf_monocular_pose_estimator_tpu_torch.parallel.resample import ring_deltas
-    from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
-    from pf_monocular_pose_estimator_tpu_torch.utils import prng
-
-    p, built = MESH_SHARDS, dict(hk.DESIGN)
-    designs = [dict(lanes=1, vec=False, threads=t) for t in (128, 256)]
-    designs += [dict(lanes=l, vec=v, threads=t) for l in (2, 4) for v in (True, False)
-                for t in (128, 256)]
-    inputs = []
-    for n, kind in ((N_PARTICLES, "ancestors"), (N_LARGE, "ancestors"), (N_LARGE, "spread")):
-        gen = torch.Generator().manual_seed(5)
-        shards = shard_lanes(LocalMesh(p), torch.randn(16, n, generator=gen).to(device))
-        blocks = ring_blocks(shards, ring_deltas(p - 1, p))
-        if kind == "spread":
-            pos = ring_positions(p, n // p, n, gen, device)
-        else:
-            wts = torch.softmax(0.8 * torch.randn(n, generator=gen), 0).to(device)
-            pos = ring_ancestor_positions(stratified_resample_soa(prng.prng_key(3), wts)[0], p,
-                                          ring_deltas(p - 1, p))
-        inputs.append((n, blocks, pos, hk.ring_gather_plain(blocks, pos)))
-    times = {}
-    try:
-        for design in designs:
-            hk.DESIGN = design
-            tag = f"lanes {design['lanes']}, {'vector' if design['vec'] else 'scalar'}, " \
-                  f"{design['threads']} threads"
-            for n, blocks, pos, want in inputs:
-                got = hk.ring_gather(blocks, pos)
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), f"ring_gather ({tag}) differs from plain at N={n}"
-            times[tag] = [round(device_time_ms(lambda: hk.ring_gather(blocks, pos)) * 1e3, 2)
-                          for _, blocks, pos, _ in inputs]
-    finally:
-        hk.DESIGN = built
-    print(f"[report] {card_line()}: ring_gather designs, one launch over {p} shards, N = "
-          f"{N_PARTICLES} and {N_LARGE} at the ancestors' positions and {N_LARGE} spread, on the "
-          f"card alone (us; as built {built}): {times}")
-    return times
-
-
 def replay(device, d, cam, markers, overrides=None, n_frames=None, n_particles=N_PARTICLES,
            mesh=None, **sharded):
     """One replay of the first `n_frames` golden frames with the main path's
@@ -1147,7 +1098,6 @@ def main() -> int:
     torch.cuda.synchronize()
     report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk)
     ring = ring_timings(device, batched=True)
-    ring_designs = ring_design_sweep(device)
 
     # launch counters: (wrapper, attribute) per kernel row
     counters = {"threshold_blur": (dk.threshold_blur, "launches"),
@@ -1292,7 +1242,7 @@ def main() -> int:
                         default_ring_clipped=int(default_run.clipped[-1])),
         "sharded_large": dict(summary(large_run, large_warm), n_particles=N_LARGE,
                               frames=SHORT_FRAMES, clipped=int(large_run.clipped[-1])),
-        "ring": ring, "ring_designs": ring_designs}))
+        "ring": ring}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

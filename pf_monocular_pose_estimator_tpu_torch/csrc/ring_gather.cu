@@ -26,7 +26,11 @@
 // of bank and writes 64 (116 bytes): L * S = 100,000 lanes move 11.6 MB,
 // ~3.46 us at 3.35 TB/s.  Positions are non-decreasing except at clamped
 // draws, so neighbouring threads take neighbouring lanes: their row reads
-// coalesce, and so does every write.
+// coalesce, and so does every write.  A thread takes two lanes, reading
+// its positions and writing each row as one 8-byte vector, where every
+// row start is 8-byte aligned (S even); otherwise one lane, with 4-byte
+// accesses.  128 threads a block.  Measured on the card against one and
+// four lanes a thread, 4-byte stores and 256 threads (PERF.md, PR 7).
 
 #include <cuda_runtime.h>
 
@@ -36,6 +40,7 @@ namespace {
 
 constexpr int kMaxBlocks = 16;    // ring blocks a shard
 constexpr int kMaxEntries = 256;  // (shard, block) descriptors a launch
+constexpr int kThreads = 128;
 
 struct RingTable {
   const float* ptr[kMaxEntries];  // entry shard * count + block
@@ -62,40 +67,33 @@ __device__ __forceinline__ const float* locate(const RingTable& table, int shard
   return table.ptr[e] + p;
 }
 
-// kLanes consecutive lanes a thread; with kVec (S % kLanes == 0) its
-// positions are read and its rows written as one vector each.
-template <int kLanes, bool kVec>
-__device__ __forceinline__ void store_row(float* row, int t0, int s, const float (&v)[kLanes]) {
-  if constexpr (kVec && kLanes == 4) {
-    *reinterpret_cast<float4*>(row + t0) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (kVec && kLanes == 2) {
+// Lanes t0 .. t0 + kLanes - 1 of one row.
+template <int kLanes>
+__device__ __forceinline__ void store_row(float* row, int t0, const float (&v)[kLanes]) {
+  if constexpr (kLanes == 2) {
     *reinterpret_cast<float2*>(row + t0) = make_float2(v[0], v[1]);
   } else {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j)
-      if (kLanes == 1 || t0 + j < s) row[t0 + j] = v[j];
+    row[t0] = v[0];
   }
 }
 
-template <int kLanes, bool kVec>
-__global__ void __launch_bounds__(256)
+// kLanes = 2 needs S even and 8-byte aligned positions and output.
+template <int kLanes>
+__global__ void __launch_bounds__(kThreads)
     ring_gather_kernel(const __grid_constant__ RingTable table, const int* __restrict__ pos,
                        int s, float* __restrict__ out) {
   const int shard = blockIdx.y;
-  const int t0 = (blockIdx.x * blockDim.x + threadIdx.x) * kLanes;
-  if (t0 >= s) return;
+  const int t0 = (blockIdx.x * kThreads + threadIdx.x) * kLanes;
+  if (t0 >= s) return;  // S % kLanes == 0, so the thread's other lane is in range too
   pos += (size_t)shard * s;
   out += (size_t)shard * 16 * s;
   int p[kLanes];
-  if constexpr (kVec && kLanes == 4) {
-    const int4 q = *reinterpret_cast<const int4*>(pos + t0);
-    p[0] = q.x, p[1] = q.y, p[2] = q.z, p[3] = q.w;
-  } else if constexpr (kVec && kLanes == 2) {
+  if constexpr (kLanes == 2) {
     const int2 q = *reinterpret_cast<const int2*>(pos + t0);
-    p[0] = q.x, p[1] = q.y;
+    p[0] = q.x;
+    p[1] = q.y;
   } else {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) p[j] = (kLanes == 1 || t0 + j < s) ? pos[t0 + j] : 0;
+    p[0] = pos[t0];
   }
   const float* src[kLanes];
   int stride[kLanes];
@@ -107,21 +105,21 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int j = 0; j < kLanes; ++j) v[r][j] = __ldg(src[j] + (size_t)r * stride[j]);
 #pragma unroll
-  for (int r = 0; r < 12; ++r) store_row<kLanes, kVec>(out + (size_t)r * s, t0, s, v[r]);
+  for (int r = 0; r < 12; ++r) store_row<kLanes>(out + (size_t)r * s, t0, v[r]);
   float zero[kLanes], one[kLanes];
 #pragma unroll
   for (int j = 0; j < kLanes; ++j) zero[j] = 0.0f, one[j] = 1.0f;
 #pragma unroll
-  for (int r = 12; r < 15; ++r) store_row<kLanes, kVec>(out + (size_t)r * s, t0, s, zero);
-  store_row<kLanes, kVec>(out + (size_t)15 * s, t0, s, one);
+  for (int r = 12; r < 15; ++r) store_row<kLanes>(out + (size_t)r * s, t0, zero);
+  store_row<kLanes>(out + (size_t)15 * s, t0, one);
 }
 
-template <int kLanes, bool kVec>
-void launch(const RingTable& table, int n_shards, const int* pos, int s, float* out, int threads,
+template <int kLanes>
+void launch(const RingTable& table, int n_shards, const int* pos, int s, float* out,
             cudaStream_t stream) {
-  const int per_block = threads * kLanes;
+  const int per_block = kThreads * kLanes;
   const dim3 grid((s + per_block - 1) / per_block, n_shards);
-  ring_gather_kernel<kLanes, kVec><<<grid, threads, 0, stream>>>(table, pos, s, out);
+  ring_gather_kernel<kLanes><<<grid, kThreads, 0, stream>>>(table, pos, s, out);
 }
 
 }  // namespace
@@ -129,14 +127,12 @@ void launch(const RingTable& table, int n_shards, const int* pos, int s, float* 
 // ptrs, strides: host arrays of n_shards * count entries, shard-major
 // (1 <= count <= 16, n_shards * count <= 256); lens: host array of `count`
 // lane counts (each > 0); pos: device int32 (n_shards, s); out: device
-// float32 (n_shards, 16, s).  lanes (1, 2, 4), vec and threads (128, 256)
-// choose the design being measured.
+// float32 (n_shards, 16, s).
 extern "C" int pfmpe_ring_gather(const void* const* ptrs, const int* strides, const int* lens,
                                  int n_shards, int count, const int* pos, int s, float* out,
-                                 int lanes, int vec, int threads, void* stream) {
+                                 void* stream) {
   if (count < 1 || count > kMaxBlocks || n_shards < 1 || n_shards * count > kMaxEntries)
     return (int)cudaErrorInvalidValue;
-  if (threads != 128 && threads != 256) return (int)cudaErrorInvalidValue;
   if (s <= 0) return (int)cudaSuccess;
   RingTable table = {};
   table.count = count;
@@ -148,20 +144,10 @@ extern "C" int pfmpe_ring_gather(const void* const* ptrs, const int* strides, co
     table.ptr[e] = (const float*)ptrs[e];
     table.stride[e] = strides[e];
   }
-  // vectors need every shard's row starts aligned to the vector
-  const bool aligned = s % lanes == 0 && (uintptr_t)pos % (4 * lanes) == 0 &&
-                       (uintptr_t)out % (4 * lanes) == 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (lanes == 1) {
-    launch<1, false>(table, n_shards, pos, s, out, threads, st);
-  } else if (lanes == 2) {
-    if (vec && aligned) launch<2, true>(table, n_shards, pos, s, out, threads, st);
-    else launch<2, false>(table, n_shards, pos, s, out, threads, st);
-  } else if (lanes == 4) {
-    if (vec && aligned) launch<4, true>(table, n_shards, pos, s, out, threads, st);
-    else launch<4, false>(table, n_shards, pos, s, out, threads, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (s % 2 == 0 && (uintptr_t)pos % 8 == 0 && (uintptr_t)out % 8 == 0)
+    launch<2>(table, n_shards, pos, s, out, st);
+  else
+    launch<1>(table, n_shards, pos, s, out, st);
   return (int)cudaGetLastError();
 }

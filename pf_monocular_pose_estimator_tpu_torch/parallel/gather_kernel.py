@@ -25,9 +25,6 @@ MAX_BLOCKS = 16  # ring blocks a shard
 # (shard, block) descriptors a launch: pointer and row stride, 3 KB of the
 # kernel's 4 KB of parameters
 MAX_ENTRIES = 256
-# the design being measured: lanes a thread (1, 2, 4), vector positions and
-# stores (where S allows), threads a block (128, 256)
-DESIGN = dict(lanes=4, vec=True, threads=256)
 
 
 def _as_shards(blocks, take_pos: torch.Tensor):
@@ -74,32 +71,33 @@ def ring_gather(blocks, take_pos: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ring_gather: {n_shards} shards x {count} blocks is over the "
                          f"descriptor table's {MAX_ENTRIES} entries")
     lens = [b.shape[-1] for b in shards[0]]
+    dev = pos.get_device()
+    ptrs, strides = [], []
     for shard in shards:
         if len(shard) != count:
             raise ValueError("ring_gather: every shard takes the same number of blocks")
         for b, n in zip(shard, lens):
-            if b.dtype != torch.float32 or b.dim() != 2 or b.shape[0] != 12 or b.shape[1] < 1:
-                raise ValueError("ring_gather: each block must be a (12, len >= 1) float32 tensor")
-            if b.shape[1] != n:
-                raise ValueError("ring_gather: block b has the same lanes on every shard")
-            if b.stride(1) != 1 and b.shape[1] > 1:
-                raise ValueError("ring_gather: a block's lanes must be contiguous")
-            if b.stride(0) >= 2 ** 31:
-                raise ValueError("ring_gather: a block's row stride must fit in 32 bits")
-            if b.device != pos.device:
+            stride = b.stride()
+            if b.dtype is not torch.float32 or b.shape != (12, n) or n < 1:
+                raise ValueError("ring_gather: block b of every shard must be a (12, len_b >= 1) "
+                                 "float32 tensor")
+            if (stride[1] != 1 and n > 1) or stride[0] >= 2 ** 31:
+                raise ValueError("ring_gather: a block's lanes must be contiguous and its row "
+                                 "stride below 2**31")
+            if b.get_device() != dev:
                 raise ValueError("ring_gather: all tensors must be on one device")
-    if pos.device.type == "cpu":
+            ptrs.append(b.data_ptr())
+            strides.append(stride[0])
+    if dev < 0:
         return ring_gather_plain(blocks, take_pos)
     cuda_lib.require_cuda("ring_gather", pos)
     lib = cuda_lib.library()
-    entries = [b for shard in shards for b in shard]
+    n_entries = len(ptrs)
     out = torch.empty((n_shards, 16, s), dtype=torch.float32, device=pos.device)
-    ptrs = (ctypes.c_void_p * len(entries))(*(b.data_ptr() for b in entries))
-    strides = (ctypes.c_int * len(entries))(*(b.stride(0) for b in entries))
-    c_lens = (ctypes.c_int * count)(*lens)
-    code = lib.pfmpe_ring_gather(ptrs, strides, c_lens, n_shards, count, pos.data_ptr(), s,
-                                 out.data_ptr(), DESIGN["lanes"], int(DESIGN["vec"]),
-                                 DESIGN["threads"], cuda_lib.stream_ptr(pos))
+    code = lib.pfmpe_ring_gather((ctypes.c_void_p * n_entries)(*ptrs),
+                                 (ctypes.c_int * n_entries)(*strides), (ctypes.c_int * count)(*lens),
+                                 n_shards, count, pos.data_ptr(), s, out.data_ptr(),
+                                 cuda_lib.stream_ptr(pos))
     ring_gather.launches += 1
     cuda_lib.check(code, "pfmpe_ring_gather")
     return out[0] if single else out

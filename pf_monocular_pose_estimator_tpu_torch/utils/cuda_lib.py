@@ -41,7 +41,7 @@ _SIGNATURES = {
     "pfmpe_resample_gather": (_P, _P, _I, _P, _P),
     "pfmpe_resample_decode": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "pfmpe_monotone_gather": (_P, _P, _I, _I, _I, _P, _P, _P),
-    "pfmpe_ring_gather": (_P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P),
+    "pfmpe_ring_gather": (_P, _P, _P, _I, _I, _P, _I, _P, _P),
     "pfmpe_gn_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
 }
 

@@ -447,16 +447,16 @@ def test_resample_gather_exact(dev):
     assert torch.equal(got, sk.resample_gather_plain(bank, anc))
 
 
-@pytest.mark.parametrize("s", [25_000, 4099, 45])
+@pytest.mark.parametrize("s", [25_000, 4099, 4098, 45])
 @pytest.mark.parametrize("shards", [1, 2, 4, 8])
 @pytest.mark.parametrize("profile", ["window", "full_blocks", "identity"])
 def test_ring_gather_exact(dev, profile, shards, s):
     """Kernel H, one launch over L shards, at S = 25,000 (N = 100,000 over
-    P = 4) and at shard sizes that rule out vector stores.  Each shard's own
-    block is the top of its (16, S) bank and the others are views of the
-    other shards' rows, the window profile's tail at an unaligned lane
-    offset; positions land in every block, and clamped draws break their
-    order."""
+    P = 4), at odd shard sizes that rule out its 8-byte vector stores, and
+    at an even one that is no multiple of 4.  Each shard's own block is the
+    top of its (16, S) bank and the others are views of the other shards'
+    rows, the window profile's tail at an unaligned lane offset; positions
+    land in every block, and clamped draws break their order."""
     rng = np.random.default_rng(7)
     mesh = LocalMesh(shards)
     bank = torch.from_numpy(rng.normal(size=(shards, 16, s)).astype(np.float32)).to(dev)
