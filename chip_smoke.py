@@ -654,11 +654,11 @@ def check_ring_gather(device, bank_k, wn, want_c):
     shards = shard_lanes(mesh, bank_k)  # (4, 16, S)
     top12 = shards[:, :12]
     profiles = {
-        "window": [list(shards[:, :12]), mesh.receive(top12[:, :, :w], -1),
+        "window": [list(top12), mesh.receive(top12[:, :, :w], -1),
                    mesh.receive(top12[:, :, s - w:], 1)],
         "all_reach": [mesh.receive(top12, d) for d in ring_deltas(p - 1, p)],
         "ancestors": [mesh.receive(top12, d) for d in ring_deltas(p - 1, p)],
-        "identity": [list(shards[:, :12])],
+        "identity": [list(top12)],
     }
     for name, received in profiles.items():
         blocks = [list(shard) for shard in zip(*received)]
@@ -676,7 +676,7 @@ def check_ring_gather(device, bank_k, wn, want_c):
         assert hk.ring_gather.launches == before + 1, "ring_gather: not one launch for 4 shards"
         assert torch.equal(got, want), f"ring_gather differs from plain ({name})"
         if name == "identity":
-            assert torch.equal(got[:, :12], shards[:, :12]), "ring_gather identity changed the block"
+            assert torch.equal(got[:, :12], top12), "ring_gather identity changed the block"
         if name == "ancestors":
             timed = (blocks, pos)
         print(f"[kernels] ring_gather {name} P={p} S={s} ({len(blocks[0])} blocks a shard, "
@@ -731,10 +731,12 @@ def device_busy_us(prof):
     return busy, len(spans)
 
 
-def busy_us_per_call(fn, reps: int = 5, attempts: int = 3):
+def busy_us_per_call(fn, reps: int = 5, attempts: int = 3, largest: int = 6):
     """Device µs of one call of `fn`: the union of its device spans over
-    `reps` calls under torch.profiler (CUDA activity), over `reps`; a trace
-    that lists no device span is taken again, up to `attempts` traces."""
+    `reps` calls under torch.profiler (CUDA activity), over `reps`, and the
+    `largest` device entries of the trace by their total, in µs a call; a
+    trace that lists no device span is taken again, up to `attempts`
+    traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -747,8 +749,11 @@ def busy_us_per_call(fn, reps: int = 5, attempts: int = 3):
             torch.cuda.synchronize()
         busy, _ = device_busy_us(prof)
         if busy > 0:
-            return round(busy / reps, 2)
-    return "not measured (the profiler saw no device time)"
+            totals = sorted(((getattr(ev, "device_time_total", None)
+                              or getattr(ev, "cuda_time_total", 0), kernel_name(ev.key))
+                             for ev in prof.key_averages()), reverse=True)[:largest]
+            return round(busy / reps, 2), {name: round(t / reps, 2) for t, name in totals}
+    return "not measured (the profiler saw no device time)", {}
 
 
 def ring_timings(device, batched: bool) -> dict:
@@ -759,8 +764,8 @@ def ring_timings(device, batched: bool) -> dict:
     alone, at random positions over every block), each against its plain
     version and timed on the card alone (CUDA graphs of 20 calls), beside
     `index_select` over the concatenation and H's bound; then the device
-    time of one whole ring resampling
-    (torch.profiler, the union of its device spans), also on the reference's
+    time of one whole ring resampling (torch.profiler, the union of its
+    device spans, and its largest device entries), also on the reference's
     default ring.  Uses only what a checkout from before the batched launch
     has too: `python3 chip_smoke.py --ring-only` runs it (without `batched`)
     in such a checkout, for comparison on one card."""
@@ -812,8 +817,8 @@ def ring_timings(device, batched: bool) -> dict:
         for ring, kwargs in (("all_reach", dict(reach=p - 1, payload_window=None)),
                              ("default_ring", {})):
             resample = make_distributed_resampler(mesh, n, **kwargs)
-            row[f"resampling_{ring}_device_us"] = busy_us_per_call(
-                lambda: resample(key, w_sh, b_sh))
+            row[f"resampling_{ring}_device_us"], row[f"resampling_{ring}_largest_us"] = \
+                busy_us_per_call(lambda: resample(key, w_sh, b_sh))
         out[n] = row
         print(f"[ring] {card_line()}: N={n} P={p} (us): {row}")
     return out

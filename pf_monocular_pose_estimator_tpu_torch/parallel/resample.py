@@ -136,7 +136,7 @@ def _resample_shards(mesh, key, w, bank16, n: int, reach: int, chunk: int, windo
         # holds its forward neighbour's head; the tail window travels
         # forward with one CDF entry ahead of it, so "ancestor before the
         # window" shows.  The wrap-around edges carry no reachable draw.
-        received = [[top12[i] for i in range(n_local)], mesh.receive(top12[:, :, :wlen], -1),
+        received = [list(top12), mesh.receive(top12[:, :, :wlen], -1),
                     mesh.receive(top12[:, :, s - wlen:], 1)]
         blocks_cdf = [cdf_n, mesh.ppermute(cdf_n[:, :wlen], -1),
                       mesh.ppermute(cdf_n[:, s - wlen - 1:], 1)]
