@@ -30,7 +30,7 @@
 // its positions and writing each row as one 8-byte vector, where every
 // row start is 8-byte aligned (S even); otherwise one lane, with 4-byte
 // accesses.  128 threads a block.  Measured on the card against one and
-// four lanes a thread, 4-byte stores and 256 threads (PERF.md §6).
+// four lanes a thread, 4-byte stores and 256 threads (PERF.md, Findings).
 
 #include <cuda_runtime.h>
 
