@@ -38,8 +38,26 @@ Phases (any failure raises and exits non-zero):
      size the sharded path exists for (every frame must update);
   9. group -- a `torch.distributed` group of this one rank over `nccl`
      carries the sharded step's collectives for a few frames, which must
-     equal the local mesh of one shard bit for bit.
-Phase 3 also holds F and G to their plain versions at 1,000,000 lanes and
+     equal the local mesh of one shard bit for bit;
+ 10. ego -- the main path with `use_cam_pos=True` and the observer pose of
+     frame i - 1 given with frame i (so kernel B's left matrix moves): same
+     bars, and the observer's motion at the end not the identity;
+ 11. faults -- the main path with one occlusion and two false detections,
+     seeds 0-2, held to tests/test_robustness.py's bars (tracked >= 0.9,
+     the median of the per-seed median translation errors <= 2 x phase 4's
+     ATE, the pooled median orientation <= 3 deg);
+ 12. exposure -- 20 frames with `use_online_exposure_control=True`: the
+     exposure counters after every frame equal a host recomputation;
+ 13. ipe -- `use_particle_filter=False` with 64 particles: same bars, no
+     re-initialisation after frame 0, kernels B and D never launched;
+ 14. realistic -- tests/golden/realistic_sequence.npz (120 uint8 frames
+     with clutter) with configs/experiments/realistic_golden.yaml's
+     settings: tracked >= 0.95, ATE <= 17 mm, orientation <= 5.62 deg.
+Phases 10-14 each replay a second time warm, for frames per second and
+syncs per frame.
+Phase 3 also holds kernel B with a moving observer (ego-motion's
+cam_move_inv, a ~1e-2 twist) to its plain version, whole and per shard,
+and F and G to their plain versions at 1,000,000 lanes, and
 times F with the other placement of its window-start count.  After
 phase 3 it reports the `-Xptxas -v` line (registers, stack frame, spills)
 of every kernel (E, F and G must use no local memory, B none beyond the
@@ -87,6 +105,26 @@ MESH_SHARDS = 4
 # the ring that cannot clip: whole blocks from every other shard
 SHARDED = dict(resample_reach=MESH_SHARDS - 1, payload_window=None)
 N_LARGE = 1_000_000
+# configs/experiments/realistic_golden.yaml: its `tracker:` block and its
+# camera (configs/camera_mvbluefox.yaml), written out because the card's
+# Python has no yaml reader (tests/test_torch_goldens.py holds them equal)
+# the options ported last, each on the main path's config
+EGO = dict(use_cam_pos=True)
+FAULTS = dict(number_of_occlusions=1, number_of_false_detections=2)
+# tests/test_robustness.py's seeds: with false detections 1-5 px from real
+# ones, whether an init lands on the right constellation is decided by
+# rounding, so its bars pool three runs
+FAULT_SEEDS = (0, 1, 2)
+EXPOSURE = dict(use_online_exposure_control=True)
+IPE = dict(use_particle_filter=False)  # configs/experiments/ipe_legacy.yaml, 64 particles
+IPE_PARTICLES = 64
+# ego-motion's cam_move_inv in kernel B's check: a twist of ~1e-2
+OBSERVER_MOVE = (0.012, -0.008, 0.01, 0.01, -0.015, 0.008)
+REALISTIC_GOLDEN = ROOT / "tests" / "golden" / "realistic_sequence.npz"
+REALISTIC = dict(n_particles=2000, pf_max_retries=20, min_blob_area=8.0, threshold_value=180.0,
+                 init_cluster_radius=120.0, init_cluster_min=5)
+REALISTIC_CAMERA = dict(fx=621.75, fy=621.39, cx=404.95, cy=238.26,
+                        dist=(-0.36, 0.13, 0.0005, -0.0005, 0.0), width=752, height=480)
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM bytes per
 # second and float32 operations per second outside the tensor cores.  The
@@ -219,10 +257,11 @@ def gn_inputs(d, cam, markers, device, det_xy=None, seed=1):
     return (scal_d, poses0.reshape(b, 16).contiguous(), mark, du, dv, cmask.float())
 
 
-def pf_inputs(d, cam, markers, device):
+def pf_inputs(d, cam, markers, device, cam_move_inv=None):
     """Kernel B's main-path input: N = 100,000 poses scattered 0.01 around
     golden frame 10's, a step, the five projected markers plus 0.3 px of
-    noise among 16 detection slots -> (bank, parameters, keys, detections)."""
+    noise among 16 detection slots -> (bank, parameters, keys, detections).
+    `cam_move_inv` is the left matrix (ego-motion; the identity unless given)."""
     import torch
     from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3, project
     from pf_monocular_pose_estimator_tpu_torch.pf import step_kernel as sk
@@ -244,7 +283,8 @@ def pf_inputs(d, cam, markers, device):
     scal = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, torch.tensor(10.0, device=device),
                         torch.tensor(5.0, device=device), torch.tensor(5.0, device=device),
                         torch.tensor(0.0, device=device)])
-    prm_b = sk.pack_params(eye, step, gt, gt @ step, lo, -lo, scal, markers,
+    left = eye if cam_move_inv is None else cam_move_inv
+    prm_b = sk.pack_params(left, step, gt, gt @ step, lo, -lo, scal, markers,
                            torch.ones(5, dtype=torch.bool, device=device), det_xy, det_mask,
                            torch.zeros(5, dtype=torch.bool, device=device))
     k_rot, k_trans = prng.split(prng.prng_key(7))
@@ -254,6 +294,7 @@ def pf_inputs(d, cam, markers, device):
 def check_kernels(device, d, cam, markers):
     """Phase 3: kernel vs plain at main-path shapes; returns the table rows."""
     import torch
+    from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3
     from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
     from pf_monocular_pose_estimator_tpu_torch.pf import gather_kernel as gk
     from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel as rk
@@ -353,6 +394,31 @@ def check_kernels(device, d, cam, markers):
     print(f"[kernels] pf_step per shard P={MESH_SHARDS} (lane_offset, n_total): bank and weights "
           f"equal the whole-bank pass bit for bit; one shard's pass S={s_len} takes "
           f"{shard_us:.2f} us on the card alone")
+
+    # B with a moving observer: ego-motion's cam_move_inv (a ~1e-2 twist) as
+    # the left matrix, held to the plain version as exactly as the identity
+    move = exp_se3(torch.tensor(OBSERVER_MOVE, device=device))
+    _, prm_e, _, _ = pf_inputs(d, cam, markers, device, cam_move_inv=move)
+    bank_e, w_e = sk.pf_step(bank, prm_e, keys, 5, 16)
+    bank_ep, w_ep = sk.pf_step_plain(bank, prm_e, keys, 5, 16)
+    parts = [sk.pf_step(bank[:, i * s_len:(i + 1) * s_len].contiguous(), prm_e, keys, 5, 16,
+                        lane_offset=i * s_len, n_total=n) for i in range(MESH_SHARDS)]
+    torch.cuda.synchronize()
+    ulps = (bank_e.view(torch.int32).long() - bank_ep.view(torch.int32).long()).abs()
+    ulps = torch.where((bank_e == 0) & (bank_ep == 0), torch.zeros_like(ulps), ulps)
+    max_ulp_e = int(ulps.max())
+    same_we = int((w_e == w_ep).sum())
+    moved = float((bank_e - bank_k)[:12].abs().max())
+    print(f"[kernels] pf_step N={n} with a moving observer (cam_move_inv = exp of "
+          f"{list(OBSERVER_MOVE)}): bank max {max_ulp_e} ulp, weights equal on {same_we} of {n} "
+          f"lanes (max abs err {float((w_e - w_ep).abs().max())}); the bank moved up to {moved} "
+          f"from the identity's; per shard P={MESH_SHARDS} equal to the whole-bank pass")
+    assert max_ulp_e <= 4, f"pf_step with a moving observer: bank differs by {max_ulp_e} ulp"
+    assert same_we == n, f"pf_step with a moving observer: weights equal on {same_we} of {n}"
+    assert moved > 1e-3, "pf_step: the moving observer did not move the bank"
+    assert torch.equal(torch.cat([b for b, _ in parts], 1), bank_e) and \
+        torch.equal(torch.cat([w for _, w in parts]), w_e), \
+        "pf_step per shard with a moving observer differs from the whole-bank pass"
 
     # B, pairs variant (#4): the same pass with each particle's greedy pairs
     got = sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True)
@@ -825,12 +891,16 @@ def ring_timings(device, batched: bool) -> dict:
 
 
 def replay(device, d, cam, markers, overrides=None, n_frames=None, n_particles=N_PARTICLES,
-           mesh=None, **sharded):
-    """One replay of the first `n_frames` golden frames with the main path's
-    config plus `overrides`; with `mesh`, the bank cut over that particles
-    mesh and `sharded` passed to `make_sharded_tracker`.  Returns the poses,
-    the per-frame updated / fail flag / cumulative clipped draws, the
-    seconds, the tracker and the last state."""
+           mesh=None, base=MAIN, observer=None, seed=0, **sharded):
+    """One replay of the first `n_frames` frames of `d` with the config `base`
+    (the main path's unless given) plus `overrides`; with `mesh`, the bank
+    cut over that particles mesh and `sharded` passed to
+    `make_sharded_tracker`; with `observer(i) -> (obs_pose, obs_time)`, the
+    observer pose given with frame i; the state's key is `prng_key(seed)`.
+    Returns the poses, the per-frame updated / fail flag / cumulative
+    clipped draws / injected and occluded detections / detection count /
+    blob area / ROI / exposure and its two counters, the seconds, the
+    tracker and the last state."""
     import torch
     from pf_monocular_pose_estimator_tpu_torch.parallel import (make_sharded_tracker,
                                                                 shard_target_state)
@@ -838,9 +908,9 @@ def replay(device, d, cam, markers, overrides=None, n_frames=None, n_particles=N
     from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
     from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
 
-    config = TrackerConfig(**dict(MAIN, n_particles=n_particles), **(overrides or {}))
+    config = TrackerConfig(**dict(base, n_particles=n_particles), **(overrides or {}))
     mask = torch.ones(markers.shape[0], dtype=torch.bool)
-    state = TargetState.create(n_particles, prng_key(0), device=device)
+    state = TargetState.create(n_particles, prng_key(seed), device=device)
     if mesh is None:
         step = make_tracker(cam, markers, mask, config, device=device)
     else:
@@ -849,25 +919,35 @@ def replay(device, d, cam, markers, overrides=None, n_frames=None, n_particles=N
     frames = torch.from_numpy(d["frames"][:n_frames]).to(device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = []
+    results, counters = [], []
     for i in range(frames.shape[0]):
-        state, res = step(state, frames[i], float(d["times"][i]))
+        obs = () if observer is None else observer(i)
+        state, res = step(state, frames[i], float(d["times"][i]), *obs)
         results.append(res)
+        counters.append((state.exposure_counter_increase, state.exposure_counter_decrease))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     stack = lambda name: torch.stack([getattr(r, name) for r in results]).cpu().numpy()
     return SimpleNamespace(poses=stack("pose"), updated=stack("pose_updated"),
                            flags=stack("fail_flag"), clipped=stack("resample_clipped"),
+                           injected=stack("detections_injected").sum(1),
+                           occluded=stack("detections_occluded").sum(1),
+                           num_detections=stack("num_detections"),
+                           blob_area_sum=stack("blob_area_sum"), roi=stack("roi"),
+                           exposure_us=stack("exposure_us"),
+                           exposure_counters=torch.stack([torch.stack(c) for c in counters])
+                           .cpu().numpy(),
                            seconds=seconds, step=step, state=state, n_particles=n_particles,
                            syncs_per_frame=step.host.count / step.frames,
                            frames_per_second=frames.shape[0] / seconds)
 
 
-def idle_share(device, d, cam, markers, n_frames: int = 20) -> dict:
-    """The card's busy time against the wall time of `n_frames` warm
-    main-path frames: golden frames 0-19 warm a new tracker, 20-39 are timed
-    as they run, 40-59 are timed under torch.profiler (CUDA activity only),
-    whose kernels, copies and sets give the busy time (their union).  The
+def idle_share(device, d, cam, markers, n_frames: int = 20, overrides=None,
+               n_particles: int = N_PARTICLES) -> dict:
+    """The card's busy time against the wall time of `n_frames` warm frames
+    of the main path (plus `overrides`): golden frames 0-19 warm a new
+    tracker, 20-39 are timed as they run, 40-59 are timed under
+    torch.profiler (CUDA activity only), whose kernels, copies and sets give the busy time (their union).  The
     idle share is against the wall without the profiler, which adds host
     time to each frame; the share against the profiled wall is given under
     its own name."""
@@ -877,9 +957,10 @@ def idle_share(device, d, cam, markers, n_frames: int = 20) -> dict:
     from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
     from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
 
-    step = make_tracker(cam, markers, torch.ones(markers.shape[0], dtype=torch.bool),
-                        TrackerConfig(**MAIN), device=device)
-    state = TargetState.create(N_PARTICLES, prng_key(0), device=device)
+    config = TrackerConfig(**dict(MAIN, n_particles=n_particles), **(overrides or {}))
+    step = make_tracker(cam, markers, torch.ones(markers.shape[0], dtype=torch.bool), config,
+                        device=device)
+    state = TargetState.create(n_particles, prng_key(0), device=device)
     frames = torch.from_numpy(d["frames"][:3 * n_frames]).to(device)
 
     def run(lo):
@@ -1057,6 +1138,164 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
           f"shards) at N={N_PARTICLES} (us): {times}")
 
 
+def observer_poses(d, device):
+    """`observer(i) -> (obs_pose, obs_time)` for the golden sequence: with
+    frame i the observer pose of frame i - 1 arrives (one frame late, so the
+    tracker extrapolates the observer's motion), built so that the object
+    stands still in the world: cam_world = gt_0 @ inv(gt_{i-1}), given
+    through the mounting rotation as obs_pose = cam_world @ inv(_ROT_CAM)."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.tracker.step import _ROT_CAM
+
+    gt = d["poses"].astype(np.float64)
+    rot_inv = np.linalg.inv(np.asarray(_ROT_CAM))
+    poses = [torch.from_numpy((gt[0] @ np.linalg.inv(gt[max(i - 1, 0)]) @ rot_inv)
+                              .astype(np.float32)).to(device) for i in range(len(gt))]
+    return lambda i: (poses[i], float(d["times"][max(i - 1, 0)]))
+
+
+def exposure_on_host(run, base: float):
+    """The exposure state machine recomputed on the host from each frame's
+    blob area sum, ROI and detection count (float32, as the tracker does) ->
+    (counter_increase, counter_decrease, exposure_us) after every frame."""
+    f32 = np.float32
+    inc = dec = 0
+    exposure = f32(base)
+    out = []
+    for area, roi, count in zip(run.blob_area_sum, run.roi, run.num_detections):
+        frac = f32(area) / max(f32(roi[2]) * f32(roi[3]), f32(1.0))
+        inc += int(count > 0 and frac < f32(0.013))
+        dec += int(count > 0 and frac > f32(0.037))
+        if inc > 500 or dec > 500:
+            exposure = f32(exposure + (0.2 * base if inc > 500 else -0.2 * base))
+            inc = dec = 0
+        out.append((inc, dec, float(exposure)))
+    return out
+
+
+def ported_options(device, d, cam, markers, card, main_run, counted_replay, warm_replay,
+                   summary) -> dict:
+    """Phases 10-14: the options ported last, each driven through
+    `make_tracker` with its launch counts set to 0 just before and read just
+    after, then replayed warm; returns their summaries.
+
+    [ego] observer poses one frame late; [faults] one occlusion and two false
+    detections, three seeds held to tests/test_robustness.py's bars against
+    phase 4's ATE; [exposure] the exposure counters against a host recomputation;
+    [ipe] the track branch without a particle filter; [realistic] the
+    realistic golden with configs/experiments/realistic_golden.yaml's
+    settings and bars."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+
+    out = {}
+    pf_kernels = ("detect_stats", "pf_step", "gn_refine")
+
+    def launched(tag, run, names):
+        missing = [n for n in names if run.launches[n] == 0]
+        assert not missing, f"{tag}: never launched {missing}"
+
+    # 10. ego-motion: the first path whose kernel B gets a left matrix that moves
+    observer = observer_poses(d, device)
+    ego = counted_replay("ego", EGO, observer=observer)
+    launched("ego", ego, pf_kernels)
+    change = float((ego.state.change_cam_pose - torch.eye(4, device=device)).abs().max())
+    print(f"[ego] change_cam_pose at the end differs from the identity by {change}")
+    assert change > 1e-3, "ego: the observer never moved"
+    out["ego"] = dict(summary(ego, warm_replay("ego", EGO, observer=observer)),
+                      change_cam_pose_from_identity=change)
+
+    # 11. faults: tests/test_robustness.py's bars over its three seeds (tracked
+    # fraction averaged, the median of the per-seed median translation errors
+    # against phase 4's clean ATE, the median orientation over every tracked
+    # frame); its per-seed orientation bars (mean <= 11, worst <= 17 deg) are
+    # reported
+    per_seed, errs, angs = [], [], []
+    for seed in FAULT_SEEDS:
+        run = counted_replay(f"faults seed {seed}", FAULTS, bars=False, all_updated=False,
+                             seed=seed)
+        launched("faults", run, pf_kernels)
+        upd = run.updated
+        err = np.linalg.norm(run.poses[upd][:, :3, 3] - d["poses"][upd][:, :3, 3], axis=-1)
+        rel = np.einsum("tij,tkj->tik", run.poses[upd][:, :3, :3], d["poses"][upd][:, :3, :3])
+        ang = np.degrees(np.arccos(np.clip((np.trace(rel, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+        errs.append(err)
+        angs.append(ang)
+        per_seed.append(dict(seed=seed, tracked=float(upd.mean()),
+                             median_translation_mm=float(np.median(err)) * 1e3,
+                             ate_mm=run.ate * 1e3, orientation_deg=run.ori,
+                             injected=int(run.injected.sum()), occluded=int(run.occluded.sum()),
+                             flags=sorted(set(run.flags.tolist()))))
+        print(f"[faults] {per_seed[-1]}")
+        if seed == FAULT_SEEDS[0]:
+            faults = run
+    stats = dict(tracked=float(np.mean([p["tracked"] for p in per_seed])),
+                 median_of_medians_mm=float(np.median([np.median(e) for e in errs])) * 1e3,
+                 clean_ate_mm=main_run.ate * 1e3,
+                 pooled_median_orientation_deg=float(np.median(np.concatenate(angs))),
+                 mean_seed_orientation_deg=float(np.mean([p["orientation_deg"] for p in per_seed])),
+                 worst_seed_orientation_deg=float(max(p["orientation_deg"] for p in per_seed)),
+                 injected=sum(p["injected"] for p in per_seed),
+                 occluded=sum(p["occluded"] for p in per_seed))
+    print(f"[faults] over seeds {list(FAULT_SEEDS)}: {stats} (bars: tracked >= 0.9, median of "
+          f"medians <= {2 * main_run.ate * 1e3:.3f} mm, pooled median orientation <= 3 deg)")
+    assert stats["tracked"] >= 0.9, f"faults: tracked {stats['tracked']}"
+    assert stats["median_of_medians_mm"] <= 2 * main_run.ate * 1e3, f"faults: {stats}"
+    assert stats["pooled_median_orientation_deg"] <= 3.0, f"faults: orientation {stats}"
+    assert stats["injected"] > 0 and stats["occluded"] > 0, "faults: nothing injected"
+    out["faults"] = dict(summary(faults, warm_replay("faults", FAULTS, all_updated=False)),
+                         **stats, per_seed=per_seed)
+
+    # 12. exposure control: the counters after every frame against the host
+    exposure = counted_replay("exposure", EXPOSURE, SHORT_FRAMES)
+    launched("exposure", exposure, pf_kernels)
+    want = exposure_on_host(exposure, TrackerConfig().expose_time_base)
+    got = [(int(a), int(b), float(e)) for (a, b), e in zip(exposure.exposure_counters,
+                                                          exposure.exposure_us)]
+    print(f"[exposure] counters (increase, decrease, exposure us) after each frame: {got}")
+    assert got == want, f"exposure: the tracker's {got} against the host's {want}"
+    out["exposure"] = dict(summary(exposure, warm_replay("exposure", EXPOSURE, SHORT_FRAMES)),
+                           counters=got[-1])
+
+    # 13. IPE: no particle filter, so no kernel B and no batched GN
+    ipe = counted_replay("ipe", IPE, n_particles=IPE_PARTICLES)
+    launched("ipe", ipe, ("threshold_blur", "detect_stats"))
+    assert ipe.launches["pf_step"] == 0 and ipe.launches["gn_refine"] == 0
+    reinit = np.flatnonzero(ipe.flags[1:] == 0).tolist()
+    assert not reinit, f"ipe: re-initialised on frames {[f + 1 for f in reinit]}"
+    idle = idle_share(device, d, cam, markers, overrides=IPE, n_particles=IPE_PARTICLES)
+    print(f"[idle] {card}: ipe, 20 warm frames: {idle}")
+    out["ipe"] = dict(summary(ipe, warm_replay("ipe", IPE, n_particles=IPE_PARTICLES)),
+                      n_particles=IPE_PARTICLES, idle=idle)
+
+    # 14. the realistic golden: clutter, distractors, blur, flicker (uint8)
+    r = np.load(REALISTIC_GOLDEN)
+    c = REALISTIC_CAMERA
+    r_cam = Camera.create(c["fx"], c["fy"], c["cx"], c["cy"], np.asarray(c["dist"], np.float32),
+                          c["width"], c["height"], device=device)
+    r_markers = torch.from_numpy(np.concatenate([r["markers"], np.ones((5, 1), np.float32)],
+                                                1)).to(device)
+    golden = (r, r_cam, r_markers)
+    n_real = REALISTIC["n_particles"]
+    real = counted_replay("realistic", base=REALISTIC, n_particles=n_real, golden=golden,
+                          bars=False, all_updated=False)
+    launched("realistic", real, ("threshold_blur",) + pf_kernels)
+    tracked = float(real.updated.mean())
+    print(f"[realistic] tracked {tracked}, ATE {real.ate * 1e3:.3f} mm, orientation "
+          f"{real.ori:.3f} deg (bars: >= 0.95, <= 17 mm, <= 5.62 deg)")
+    assert tracked >= 0.95, f"realistic: tracked {tracked}"
+    assert real.ate <= 0.017, f"realistic: ATE {real.ate * 1e3:.2f} mm"
+    assert real.ori <= 5.62, f"realistic: orientation error {real.ori:.2f} deg"
+    out["realistic"] = dict(summary(real, warm_replay("realistic", base=REALISTIC,
+                                                      n_particles=n_real, golden=golden,
+                                                      all_updated=False)),
+                            tracked=tracked, frames=int(real.poses.shape[0]))
+    for name, v in out.items():
+        print(f"[{name}] {card}: {v}")
+    return out
+
+
 def accuracy(est, gt):
     err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
     rel = np.einsum("tij,tkj->tik", est[:, :3, :3], gt[:, :3, :3])
@@ -1104,6 +1343,11 @@ def main() -> int:
     report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk)
     ring = ring_timings(device, batched=True)
 
+    def summary(cold, warm):
+        return {"frames_per_second": warm.frames_per_second,
+                "syncs_per_frame": warm.syncs_per_frame, "ate_mm": cold.ate * 1e3,
+                "orientation_deg": cold.ori}
+
     # launch counters: (wrapper, attribute) per kernel row
     counters = {"threshold_blur": (dk.threshold_blur, "launches"),
                 "detect_stats": (dk.detect_stats, "launches"),
@@ -1115,32 +1359,36 @@ def main() -> int:
                 "ring_gather": (hk.ring_gather, "launches"),
                 "gn_refine": (rk.gn_refine, "launches")}
 
-    def counted_replay(tag, *args, bars=True, **kwargs):
-        """A replay with every launch count set to 0 just before it and read
-        just after; every frame must update and, with `bars`, the golden
-        sequence's accuracy bars hold."""
+    def counted_replay(tag, *args, bars=True, all_updated=True, golden=None, **kwargs):
+        """A replay (of `golden` = (data, camera, markers), the golden sequence
+        unless given) with every launch count set to 0 just before it and read
+        just after; with `all_updated` every frame must update and, with
+        `bars`, the golden sequence's accuracy bars hold.  ATE and orientation
+        error are over the updated frames."""
+        data, camera, marks = golden or (d, cam, markers)
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
-        run = replay(device, d, cam, markers, *args, **kwargs)
+        run = replay(device, data, camera, marks, *args, **kwargs)
         run.launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
         n_frames = run.poses.shape[0]
-        run.ate, run.ori = accuracy(run.poses, d["poses"][:n_frames])
+        run.ate, run.ori = accuracy(run.poses[run.updated], data["poses"][:n_frames][run.updated])
         print(f"[{tag}] launches in the replay: {run.launches}")
         print(f"[{tag}] {run.n_particles} particles, {n_frames} frames: updated "
               f"{int(run.updated.sum())}/{n_frames}, ATE {run.ate * 1e3:.3f} mm, orientation "
               f"{run.ori:.3f} deg, flags {sorted(set(run.flags.tolist()))}, first pass "
               f"{run.seconds:.2f} s")
         missed = np.flatnonzero(~run.updated).tolist()
-        assert not missed, f"{tag}: untracked frames: {missed}"
+        assert not (all_updated and missed), f"{tag}: untracked frames: {missed}"
         if bars:
             assert run.ate < 0.01, f"{tag}: ATE {run.ate * 1e3:.2f} mm"
             assert run.ori < 1.5, f"{tag}: orientation error {run.ori:.2f} deg"
         return run
 
-    def warm_replay(tag, *args, **kwargs):
+    def warm_replay(tag, *args, all_updated=True, golden=None, **kwargs):
         """A second replay of a path just driven: frames per second, syncs per frame."""
-        run = replay(device, d, cam, markers, *args, **kwargs)
-        assert run.updated.all()
+        data, camera, marks = golden or (d, cam, markers)
+        run = replay(device, data, camera, marks, *args, **kwargs)
+        assert run.updated.all() or not all_updated
         print(f"[{tag}] {card}: warm replay {run.frames_per_second:.2f} frames/s at "
               f"{run.n_particles} particles ({1e3 / run.frames_per_second:.2f} ms/frame), "
               f"{run.syncs_per_frame:.2f} device->host syncs per frame")
@@ -1217,6 +1465,10 @@ def main() -> int:
     # 9. the same step over a torch.distributed group of this one rank
     one_rank_group(device, d, cam, markers)
 
+    # 10-14. the options ported last, each counted, then a warm second replay
+    new_paths = ported_options(device, d, cam, markers, card, main_run, counted_replay,
+                               warm_replay, summary)
+
     for r in rows:
         # each kernel's launches on the path it lies on: A-D on the main path, E
         # and F on the slice, H on the sharded replay; B's pairs variant and G
@@ -1232,11 +1484,6 @@ def main() -> int:
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), plain {r['plain_ms'] * 1e3:.1f} us"
               f"{lib}")
 
-    def summary(cold, warm):
-        return {"frames_per_second": warm.frames_per_second,
-                "syncs_per_frame": warm.syncs_per_frame, "ate_mm": cold.ate * 1e3,
-                "orientation_deg": cold.ori}
-
     print(json.dumps({
         "replay": dict(summary(main_run, main_warm), card=card, idle=idle),
         "slice": dict(summary(slice_run, slice_warm), decoded_frames=slice_run.step.decoded_frames,
@@ -1247,7 +1494,7 @@ def main() -> int:
                         default_ring_clipped=int(default_run.clipped[-1])),
         "sharded_large": dict(summary(large_run, large_warm), n_particles=N_LARGE,
                               frames=SHORT_FRAMES, clipped=int(large_run.clipped[-1])),
-        "ring": ring}))
+        "ring": ring, **new_paths}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,13 +9,15 @@ Layer map (the reference's names, so each module's counterpart is easy
 to find):
   geometry/  SE(3) exp/log, pinhole camera + plumb-bob distortion, Umeyama
   solvers/   batched Ferrari quartic + Kneip P3P, combinatoric tables
-  ops/       LED detection; `detect_kernel` wraps csrc/detect.cu
+  ops/       LED detection (`detect_kernel` wraps csrc/detect.cu), fault
+             injection, online exposure control
   pf/        propagate, weight, resample, refine; `step_kernel` wraps
              csrc/pf_step.cu + csrc/resample_gather.cu, `weight_kernel`
              csrc/pf_weight.cu, `resample_kernel` csrc/resample_decode.cu,
              `gather_kernel` csrc/monotone_gather.cu, `refine_kernel`
              csrc/gn_refine.cu
-  tracker/   per-frame state machine (init branch + PF track branch)
+  tracker/   per-frame state machine (init branch, PF and IPE track
+             branches, observer ego-motion)
   parallel/  the bank sharded over a particles mesh: `comm` (a local mesh
              of P shards on one device, or one shard per
              `torch.distributed` rank), the ring resampler, kernel B per

@@ -61,7 +61,14 @@ def make_sharded_tracker(camera: Camera, markers_h, marker_mask, config: Tracker
     (`parallel.pf_kernels`).  `payload_window` and `cdf_chunk` go to
     `make_distributed_resampler`; draws beyond the window or the reach are
     clamped and counted in `FrameResult.resample_clipped` (cumulative):
-    widen the window, or pass None for whole blocks, if it rises."""
+    widen the window, or pass None for whole blocks, if it rises.
+
+    `use_cam_pos=True` raises: the sharded step takes no observer pose, as
+    the reference's sharded step takes none."""
+    if config.use_cam_pos:
+        raise ValueError("make_sharded_tracker: use_cam_pos=True needs an observer pose each "
+                         "frame, and the sharded step takes none (nor does the reference's "
+                         "parallel/mesh.py::make_sharded_tracker); use make_tracker")
     tracker_device = torch.device(device)
     camera = camera.to(tracker_device)
     return Tracker(

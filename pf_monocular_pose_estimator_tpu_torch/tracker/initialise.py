@@ -74,7 +74,9 @@ def initialise(camera: Camera, det: Detections, markers_h: torch.Tensor,
     dev = det.xy.device
     m_cap = markers_h.shape[0]
     n_markers = torch.sum(marker_mask.to(torch.int32))
-    if config.pf_init_min_markers > 0:
+    if not config.use_particle_filter:
+        min_needed = torch.tensor(config.min_num_leds_detected, dtype=torch.int32, device=dev)
+    elif config.pf_init_min_markers > 0:
         min_needed = torch.clamp(n_markers, max=config.pf_init_min_markers)
     else:
         min_needed = n_markers

@@ -7,7 +7,7 @@ reference's `TargetState` / `FrameResult`.  Two differences:
     device round trip;
   * the reference's `ExposureState` is flattened into three fields
     (`exposure_counter_increase`, `exposure_counter_decrease`,
-    `exposure_us`); online exposure control itself is not ported yet.
+    `exposure_us`), which `ops/exposure.py` advances.
 """
 
 from __future__ import annotations

@@ -9,15 +9,18 @@ the small integer counters (`it_since_initialized`, `uncertainty`,
 
 Syncs on a tracked frame: the state counters (1), the ROI for the
 crop-or-full-frame choice (1), the detection count (1; +2 if the ROI is
-grown and detection retried), the best weight after every PF pass (1 per
-pass), and the accept / marginal / ESS gates read together (1).  A
-marginal frame adds up to two more (short-P3P).
+grown and detection retried; +1 after fault injection), the best weight
+after every PF pass (1 per pass), and the accept / marginal / ESS gates
+read together (1).  A marginal frame adds up to two more (short-P3P).
+With `use_pallas_resample` a frame that resamples reads the decode's
+coverage flag on the host (one more sync).
 
-Ported: the init branch and the particle-filter track branch, with every
-single-device PF, resample and Gauss-Newton switch of `TrackerConfig`.
-Options that are not ported raise NotImplementedError
-(`utils.config.check_ported`).  With `use_pallas_resample` a frame that
-resamples reads the decode's coverage flag on the host (one more sync).
+Every option of `TrackerConfig` runs: the init branch, the particle-filter
+track branch with every single-device PF, resample and Gauss-Newton
+switch, the IPE track branch (`use_particle_filter=False`), fault
+injection, online exposure control, observer ego-motion (`use_cam_pos`,
+with the observer pose and its time passed to each step) and the
+`debug_skip` stages.
 
 The reference's two SPMD hooks are here too: `pf_fn` takes the place of
 the propagate + weight pass and `resample_fn` that of the resampler, and a
@@ -33,8 +36,10 @@ import numpy as np
 import torch
 
 from ..geometry.camera import Camera, project
-from ..geometry.se3 import inverse, predict_constant_velocity
+from ..geometry.se3 import exp_se3, inverse, log_se3, predict_constant_velocity
 from ..ops.blob import Detections, determine_roi, find_leds, grow_roi
+from ..ops.exposure import ExposureState, exposure_control
+from ..ops.faults import inject_faults
 from ..pf.propagate import NoiseBounds, propagation_noise_factors
 from ..pf.refine import gauss_newton_refine
 from ..pf.refine_kernel import gauss_newton_refine_batched
@@ -50,11 +55,12 @@ from ..pf.step_kernel import fused_propagate_weight, resample_gather
 from ..pf.weight import weight_particles
 from ..pf.weight_kernel import weight_particles_bank
 from ..utils import prng
-from ..utils.config import TrackerConfig, check_ported
+from ..utils.config import TrackerConfig
 from ..utils.dynamic import DynamicParams
 from ..utils.flags import FailFlag
 from ..utils.sync import HostReads
 from .bank import WholeBank
+from .check import check_correspondences
 from .initialise import InitResult, argsort_stable, initialise
 from .short_p3p import short_p3p
 from .state import FrameResult, TargetState
@@ -63,10 +69,43 @@ _F32 = np.float32
 # DynamicParams fields the host branches on
 _HOST_DYN = ("pf_exit_gate_factor", "pf_accept_gate_factor", "marginal_margin_factor",
              "noise_inflation_per_10_iters")
+# The observer camera's mounting rotation, hard-coded as in the reference
+# (its `tracker/step.py::_ROT_CAM`).
+_ROT_CAM = ((0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 0.0), (1.0, 0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 1.0))
+
+
+def _ego_motion(state: TargetState, t: torch.Tensor, obs_pose: torch.Tensor,
+                obs_time: torch.Tensor):
+    """Observer-camera ego-motion (reference `tracker/step.py::_ego_motion`):
+    the observer's motion between its last two poses, extrapolated to `t`.
+    Returns (cam_move_inv, state with the observer fields updated); no
+    extrapolation while `t <= obs_time`.  A singular `obs_pose` counts as the
+    identity."""
+    dev = obs_pose.device
+    eye = torch.eye(4, dtype=obs_pose.dtype, device=dev)
+    singular = torch.abs(torch.linalg.det(obs_pose)) < 1e-9
+    obs_cam = torch.where(singular, eye, obs_pose) @ torch.tensor(_ROT_CAM, dtype=obs_pose.dtype,
+                                                                  device=dev)
+    new_avail = obs_time > state.time_obs_act
+    change = torch.where(new_avail, inverse(state.obs_cam_old) @ obs_cam, state.change_cam_pose)
+    obs_cam_old = torch.where(new_avail, obs_cam, state.obs_cam_old)
+    shift = torch.where(new_avail, obs_time - state.time_obs_act, state.cam_time_shift)
+    time_obs_act = torch.where(new_avail, obs_time, state.time_obs_act)
+    ratio = (t - state.time_current) / torch.clamp(shift, min=1e-6)
+    cam_move = exp_se3(log_se3(change) * ratio)
+    cam_move = torch.where(t <= obs_time, eye, cam_move)
+    state = state.replace(obs_cam_old=obs_cam_old, change_cam_pose=change,
+                          time_obs_act=time_obs_act, cam_time_shift=shift)
+    return inverse(cam_move), state
 
 
 class Tracker:
-    """`step(state, image, t) -> (state', FrameResult)` on one device.
+    """`step(state, image, t, obs_pose=None, obs_time=None, dyn=None) ->
+    (state', FrameResult)` on one device.
+
+    With `use_cam_pos`, `obs_pose` (4, 4) is the observer's pose and
+    `obs_time` its time stamp (the identity and 0 when not given); `dyn`
+    overrides the runtime-tunable parameters of the config.
 
     `host.count` counts the device -> host reads so far and `frames` the
     frames stepped, so `host.count / frames` is the syncs per frame.  With
@@ -82,7 +121,6 @@ class Tracker:
 
     def __init__(self, camera: Camera, markers_h, marker_mask, config: TrackerConfig,
                  device="cuda", pf_fn=None, resample_fn=None, mesh=None):
-        check_ported(config)
         self.config = config
         self.device = torch.device(device)
         self.pf_fn = pf_fn
@@ -130,6 +168,26 @@ class Tracker:
                             min=c.abs_max_blob_area)
         return min_a, max_a
 
+    def _faults(self, key, det: Detections):
+        """The reference's fault injection into a detection bank, and the
+        count read again when it ran."""
+        c = self.config
+        if not (c.number_of_occlusions or c.number_of_false_detections):
+            return det, None
+        det = inject_faults(key, det, c.number_of_occlusions, c.number_of_false_detections)
+        return det, self.host(det.count)
+
+    def _refine_from(self, pose0, det_for_marker, det):
+        """Gauss-Newton (plain torch, one pose) from `pose0` on the pairs
+        (marker m, detection det_for_marker[m])."""
+        c = self.config
+        m = self.markers_h.shape[0]
+        corr = torch.stack([torch.arange(m, dtype=torch.int32, device=self.device),
+                            det_for_marker], -1)
+        corr_mask = (det_for_marker >= 0) & self.marker_mask
+        return gauss_newton_refine(self.camera, pose0, self.markers_h, det.xy, corr, corr_mask,
+                                   c.gn_max_iterations, c.gn_convergence_tol)
+
     def _update_pose_times(self, state: TargetState, t: torch.Tensor, new_current):
         advance = ((t - state.time_current) > 0.001) | (t < state.time_current)
         return state.replace(
@@ -145,7 +203,8 @@ class Tracker:
                              coast_frames=self._t(coast, i32), degraded_frames=self._t(deg, i32))
 
     # ------------------------------------------------------------- step
-    def __call__(self, state: TargetState, image: torch.Tensor, t, dyn: DynamicParams | None = None):
+    def __call__(self, state: TargetState, image: torch.Tensor, t, obs_pose=None, obs_time=None,
+                 dyn: DynamicParams | None = None):
         if dyn is None:
             dyn = self.dyn
             dyn_host = self._dyn_host
@@ -159,12 +218,30 @@ class Tracker:
             state.degraded_frames]))
         state = state.replace(fail_flag=self._t(-10, torch.int32),
                               pose_updated=self._t(False, torch.bool))
+        counters = (it, unc, coast, deg)
         if it < 1:
-            state, det, best_weight, used_bf = self._init_branch(state, image, t, dyn, unc,
-                                                                 (it, unc, coast, deg))
-        else:
+            state, det, best_weight, used_bf = self._init_branch(state, image, t, dyn, counters)
+        elif self.config.use_particle_filter:
+            cam_move_inv = torch.eye(4, device=self.device)
+            if self.config.use_cam_pos:
+                obs_pose = (torch.eye(4) if obs_pose is None else obs_pose)
+                obs_time = self._t(0.0 if obs_time is None else float(obs_time))
+                cam_move_inv, state = _ego_motion(
+                    state, t, torch.as_tensor(obs_pose, dtype=torch.float32).to(self.device),
+                    obs_time)
             state, det, best_weight, used_bf = self._track_branch(state, image, t, dyn, dyn_host,
-                                                                  (it, unc, coast, deg))
+                                                                  counters, cam_move_inv)
+        else:
+            state, det, best_weight, used_bf = self._ipe_branch(state, image, t, dyn, counters)
+        if self.config.use_online_exposure_control:
+            exp = exposure_control(
+                ExposureState(state.exposure_counter_increase, state.exposure_counter_decrease,
+                              state.exposure_us),
+                torch.sum(det.area), state.roi[2] * state.roi[3], self.config.expose_time_base,
+                det.count > 0)
+            state = state.replace(exposure_counter_increase=exp.counter_increase,
+                                  exposure_counter_decrease=exp.counter_decrease,
+                                  exposure_us=exp.exposure_us)
         self.frames += 1
         result = FrameResult(
             pose=state.current_pose,
@@ -188,12 +265,12 @@ class Tracker:
         return state, result
 
     # ------------------------------------------------------------- INIT
-    def _init_branch(self, state, image, t, dyn, unc, counters):
+    def _init_branch(self, state, image, t, dyn, counters):
         c = self.config
         it, unc, coast, deg = counters
-        key, _k_faults = prng.split(state.key.tolist())
+        key, k_faults = prng.split(state.key.tolist())
         state = state.replace(key=torch.tensor(key, dtype=torch.int64))
-        if c.pf_init_min_markers > 0:
+        if c.use_particle_filter and c.pf_init_min_markers > 0:
             init_needed = min(self.n_markers, c.pf_init_min_markers)
         else:
             init_needed = self.n_markers
@@ -209,6 +286,8 @@ class Tracker:
             min_a, max_a = self._adaptive_blob_areas(dyn, torch.linalg.norm(prev_t))
             det = self._detect(image, roi, min_a, max_a, dyn)
             count = self.host(det.count)
+        det, faulted = self._faults(k_faults, det)
+        count = count if faulted is None else faulted
         enough = count >= init_needed
 
         recently = unc < c.init_consistency_uncertainty_cap
@@ -245,12 +324,7 @@ class Tracker:
         state = state.replace(roi=roi)
         success, flag = self.host(torch.stack([init_res.success.to(torch.int32), init_res.flag]))
         if success:
-            m = self.markers_h.shape[0]
-            dfm = init_res.det_for_marker
-            corr = torch.stack([torch.arange(m, dtype=torch.int32, device=self.device), dfm], -1)
-            corr_mask = (dfm >= 0) & self.marker_mask
-            res = gauss_newton_refine(self.camera, init_res.pose, self.markers_h, det.xy, corr,
-                                      corr_mask, c.gn_max_iterations, c.gn_convergence_tol)
+            res = self._refine_from(init_res.pose, init_res.det_for_marker, det)
             state = state.replace(
                 current_pose=init_res.pose,
                 predicted_pose=res.pose,
@@ -272,16 +346,14 @@ class Tracker:
         return state, det, self._t(0.0), True
 
     # ------------------------------------------------------------ TRACK
-    def _track_branch(self, state, image, t, dyn, dyn_host, counters):
+    def _track_branch(self, state, image, t, dyn, dyn_host, counters, cam_move_inv):
         c = self.config
-        dev = self.device
         it, unc, coast, deg = counters
-        key, _k_faults, k_resample = prng.split(state.key.tolist(), 3)
+        key, k_faults, k_resample = prng.split(state.key.tolist(), 3)
 
         dt_past = state.time_current - state.time_previous
         prediction = predict_constant_velocity(state.previous_pose, state.current_pose, dt_past,
                                                t - state.time_current)
-        cam_move_inv = torch.eye(4, device=dev)  # no observer ego-motion (use_cam_pos=False)
         predicted = cam_move_inv @ (state.current_pose @ prediction)
 
         # ROI from predicted particle pixels
@@ -303,6 +375,8 @@ class Tracker:
             roi = grow_roi(roi, c.roi_retry_growth, c.roi_retry_growth, self.camera)
             det = self._detect(image, roi, min_a, max_a, dyn)
             num_led = self.host(det.count)
+        det, faulted = self._faults(k_faults, det)
+        num_led = num_led if faulted is None else faulted
 
         # PF retry loop
         tracking = it > 1
@@ -335,14 +409,22 @@ class Tracker:
                 return self.pf_fn(k, resampled16, state.current_pose, predicted, prediction,
                                   cam_move_inv, noise, fac_t, fac_r, tracking, apply_pred,
                                   inflation, *weigh)
-            if c.use_fused_pf_kernel:
+            skip_propagate, skip_weight = ("propagate" in c.debug_skip,
+                                           "weight" in c.debug_skip)
+            if c.use_fused_pf_kernel and not (skip_propagate or skip_weight):
                 return fused_propagate_weight(
                     k, resampled16, state.current_pose, predicted, prediction, cam_move_inv,
                     noise, fac_t, fac_r, tracking, apply_pred, inflation, self.camera, *weigh,
                     want_pairs=False)
-            bank_i = propagate_soa(k, resampled16, state.current_pose, predicted, prediction,
-                                   cam_move_inv, noise, fac_t, fac_r, tracking, apply_pred,
-                                   inflation)
+            if skip_propagate:
+                # the reference scales by 1 + 1e-12 * inflation, 1 in float32
+                bank_i = resampled16
+            else:
+                bank_i = propagate_soa(k, resampled16, state.current_pose, predicted, prediction,
+                                       cam_move_inv, noise, fac_t, fac_r, tracking, apply_pred,
+                                       inflation)
+            if skip_weight:
+                return bank_i, torch.abs(bank_i[..., 0, :]) + 30.0
             weight_fn = weight_particles_bank if c.use_pallas_weight else weight_particles_soa
             return bank_i, weight_fn(self.camera, bank_i, *weigh)[0]
 
@@ -442,6 +524,72 @@ class Tracker:
         state = self._counters(state, it, unc, coast, deg)
         return state, det, highest_t, False
 
+    # -------------------------------------------------------- IPE TRACK
+    def _ipe_branch(self, state, image, t, dyn, counters):
+        """The track branch without a particle filter (reference
+        `ipe_track_branch`): nearest-neighbour correspondences from the
+        predicted pose, checked by P3P consensus, then Gauss-Newton; the
+        brute-force initialisation when the check fails."""
+        c = self.config
+        it, unc, coast, deg = counters
+        key, k_faults = prng.split(state.key.tolist())
+        state = state.replace(key=torch.tensor(key, dtype=torch.int64))
+        min_a, _ = self._adaptive_blob_areas(dyn, torch.linalg.norm(state.predicted_pose[:3, 3]))
+
+        # const-velocity prediction once the track is mature, else the last prediction
+        if it >= 2:
+            dt_past = state.time_current - state.time_previous
+            predicted = state.current_pose @ predict_constant_velocity(
+                state.previous_pose, state.current_pose, dt_past, t - state.time_current)
+            state = state.replace(predicted_pose=predicted)
+        pix = project(self.camera, state.predicted_pose, self.markers_h)
+        roi = determine_roi(pix, self.marker_mask, self.camera, c.roi_border_thickness)
+        det = self._detect(image, roi, min_a, None, dyn)
+        count = self.host(det.count)
+        if count < c.min_num_leds_detected:  # search the whole frame once
+            roi = self._t([0.0, 0.0, float(self.camera.width), float(self.camera.height)])
+            det = self._detect(image, roi, min_a, None, dyn)
+            count = self.host(det.count)
+        det, faulted = self._faults(k_faults, det)
+        count = count if faulted is None else faulted
+        state = state.replace(roi=roi)
+        if count < c.min_num_leds_detected:
+            state = state.replace(
+                fail_flag=self._t(int(FailFlag.TOO_FEW_MARKERS_DETECTED), torch.int32))
+            return state, det, self._t(0.0), False
+
+        dd = pix[:, None, :] - det.xy[None, :, :]
+        d2 = torch.sum(dd * dd, dim=-1)  # (M, K)
+        d2 = torch.where(det.mask[None, :], d2, torch.full((), float("inf"), device=self.device))
+        nearest = torch.argmin(d2, dim=-1)
+        min_d = torch.sqrt(torch.min(d2, dim=-1).values)
+        dfm = torch.where((min_d <= dyn.nearest_neighbour_pixel_tolerance) & self.marker_mask,
+                          nearest.to(torch.int32),
+                          torch.full((), -1, dtype=torch.int32, device=self.device))
+        chk = check_correspondences(self.camera, det.xy, det.mask, self.markers_h,
+                                    self.marker_mask, dfm[None], c.min_num_leds_detected, c, dyn)
+        if self.host(chk.success[0]):
+            res = self._refine_from(chk.pose[0], dfm, det)
+            flag = FailFlag.PF_SUCCESS
+        else:
+            init_res = initialise(self.camera, det, self.markers_h, self.marker_mask, state.bank,
+                                  c, dyn, fill_seeds=self.bank.fill_seeds)
+            if not self.host(init_res.success):
+                state = state.replace(fail_flag=init_res.flag)
+                return self._counters(state, 0, unc, coast, deg), det, self._t(0.0), False
+            res = self._refine_from(init_res.pose, init_res.det_for_marker, det)
+            state = state.replace(current_pose=init_res.pose)
+            flag = FailFlag.INIT_SUCCESS
+        state = state.replace(
+            predicted_pose=res.pose,
+            covariance=res.covariance,
+            pose_updated=self._t(True, torch.bool),
+            num_gn_iterations=res.num_iterations,
+            fail_flag=self._t(int(flag), torch.int32),
+        )
+        state = self._counters(state, min(it + 1, 2), unc, coast, deg)
+        return self._update_pose_times(state, t, res.pose), det, self._t(0.0), False
+
     def _resample_and_refine(self, state, key, det, bank16, weights_norm, dyn, t, ess_h,
                              argmax_idx, predicted, pred_trustworthy):
         """Resampling (ESS-gated) + GN refinement over 2M+1 binding
@@ -451,7 +599,9 @@ class Tracker:
         flag."""
         c = self.config
         dev = self.device
-        if c.resample_min_ess <= 0.0 or ess_h < c.resample_min_ess:
+        if "resample" in c.debug_skip:
+            resampled16, most = bank16, self.bank.argmax(weights_norm)
+        elif c.resample_min_ess <= 0.0 or ess_h < c.resample_min_ess:
             if self.resample_fn is not None:
                 out = self.resample_fn(key, weights_norm, bank16)
                 resampled16, most = out.resampled, out.most

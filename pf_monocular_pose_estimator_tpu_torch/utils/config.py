@@ -72,8 +72,6 @@ class TrackerConfig:
     max_angular_noise: float = 0.02
     marker_downgrade: Tuple[bool, ...] = (False, False, False, False, False)
     use_cam_pos: bool = False
-    # The port runs the fused folded PF kernel and the batched GN kernel;
-    # the alternatives these flags select raise (check_ported).
     use_pallas_weight: bool = True
     use_fused_pf_kernel: bool = True
     use_folded_pf_kernel: bool = True
@@ -165,27 +163,3 @@ class TrackerConfig:
             split_min_elongation=self.split_min_elongation,
             split_dip_ratio=self.split_dip_ratio,
         )
-
-
-# Options the port does not run yet.  Each raises instead of falling back;
-# the string names the ROADMAP.md item that ports it.
-_UNPORTED = (
-    ("use_particle_filter", False, "ROADMAP.md 'Modules still to port', item 3 (IPE branch)"),
-    ("use_cam_pos", True, "ROADMAP.md 'Modules still to port', item 2 (ego-motion)"),
-    ("use_online_exposure_control", True,
-     "ROADMAP.md 'Modules still to port', item 1 (faults and exposure)"),
-)
-
-
-def check_ported(config: TrackerConfig) -> None:
-    """Raise NotImplementedError for a config the port cannot run yet."""
-    for name, bad, where in _UNPORTED:
-        if getattr(config, name) == bad:
-            raise NotImplementedError(f"{name}={bad!r} is not ported yet: {where}")
-    if config.number_of_occlusions or config.number_of_false_detections:
-        raise NotImplementedError(
-            "fault injection (number_of_occlusions / number_of_false_detections) "
-            "is not ported yet: ROADMAP.md 'Modules still to port', item 1"
-        )
-    if config.debug_skip:
-        raise NotImplementedError("debug_skip stages are not ported")

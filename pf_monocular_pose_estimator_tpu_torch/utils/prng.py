@@ -15,10 +15,18 @@ Layout of the partitionable stream (reference: `pf/soa.py::_uniform_at`,
   * element `i` of a flat array of `n < 2**32` elements hashes the
     counter words `(hi, lo) = (0, i)`; its 32 random bits are `o1 ^ o2`;
   * `split(key, num)[i] = (o1, o2)` of the same hash at counter `i`;
-  * a float32 uniform is `bitcast((bits >> 9) | 0x3F800000) - 1`.
+  * a float32 uniform is `bitcast((bits >> 9) | 0x3F800000) - 1`;
+  * `fold_in(key, d)` hashes the counter words `(0, d)`, so it equals
+    `split(key, d + 1)[d]`.
+
+`bernoulli`, `rademacher` and `randint` draw a handful of values for the
+fault injector: they hash on the host and return CPU tensors (`randint`
+returns its values where its bounds lie).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -56,6 +64,11 @@ def split(key, num: int = 2) -> list[tuple[int, int]]:
     return [threefry2x32(k0, k1, 0, i) for i in range(num)]
 
 
+def fold_in(key, data: int) -> tuple[int, int]:
+    """`jax.random.fold_in(key, data)` for a 32-bit `data`."""
+    return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & MASK)
+
+
 def random_bits(key, counters: torch.Tensor) -> torch.Tensor:
     """32 random bits (int64 in [0, 2**32)) at the given flat counters."""
     k0, k1 = int(key[0]), int(key[1])
@@ -80,12 +93,46 @@ def uniform(key, shape, device="cpu", minval=0.0, maxval=1.0) -> torch.Tensor:
 
     minval/maxval may be floats or float32 tensors broadcastable to `shape`;
     jax's affine is `max(minval, u * (maxval - minval) + minval)`."""
-    n = 1
-    for s in shape:
-        n *= int(s)
-    u = uniform_at(key, torch.arange(n, device=device)).reshape(shape)
+    u = uniform_at(key, torch.arange(math.prod(shape), device=device)).reshape(shape)
     if isinstance(minval, float) and isinstance(maxval, float) and (minval, maxval) == (0.0, 1.0):
         return u
     lo = torch.as_tensor(minval, dtype=torch.float32, device=device)
     hi = torch.as_tensor(maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def bernoulli(key, p: float, shape) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` for a float32 `p`: `uniform < p`."""
+    return uniform(key, shape) < p
+
+
+def rademacher(key, shape) -> torch.Tensor:
+    """`jax.random.rademacher(key, shape)`: int32 values of -1 or 1."""
+    return 2 * bernoulli(key, 0.5, shape).to(torch.int32) - 1
+
+
+def randint(key, shape, minval, maxval) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` with int32 values.
+
+    The bounds are ints or int tensors in int32's range that broadcast to
+    `shape`, on any device; the values come back on the bounds' device.  As
+    jax does, two 32-bit draws under `split(key)` are reduced modulo the
+    span in uint32 arithmetic, products and sums wrapping at 2**32,
+    and a span of `maxval <= minval` is 1."""
+    for v in (minval, maxval):
+        if not isinstance(v, torch.Tensor) and not -2**31 <= int(v) < 2**31:
+            raise ValueError(f"randint bounds must lie in int32's range, got {v}")
+    device = next((v.device for v in (minval, maxval) if isinstance(v, torch.Tensor)), "cpu")
+    k1, k2 = split(key)
+    counters = torch.arange(math.prod(shape))
+    upper = random_bits(k1, counters).reshape(shape).to(device)
+    lower = random_bits(k2, counters).reshape(shape).to(device)
+    lo_v = torch.as_tensor(minval, device=device).to(torch.int64)
+    hi_v = torch.as_tensor(maxval, device=device).to(torch.int64)
+    span = torch.where(hi_v <= lo_v, torch.ones_like(hi_v), (hi_v - lo_v) & MASK)
+    # 2**32 % span as uint32 computes it: 0 for a span above 2**16, so no
+    # product below exceeds 2**32
+    mult = ((65536 % span) ** 2 & MASK) % span
+    offset = ((((upper % span) * mult) & MASK) + lower % span) & MASK
+    out = lo_v + offset % span
+    return (((out + 2**31) & MASK) - 2**31).to(torch.int32)

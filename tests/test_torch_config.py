@@ -71,22 +71,17 @@ def test_port_never_imports_jax():
     assert not offenders, offenders
 
 
-@pytest.mark.parametrize(
-    "override",
-    [
-        dict(use_particle_filter=False),
-        dict(use_cam_pos=True),
-        dict(number_of_occlusions=1),
-        dict(number_of_false_detections=2),
-        dict(use_online_exposure_control=True),
-    ],
-)
-def test_unported_options_raise(override):
+def test_sharded_tracker_refuses_observer_poses():
+    """The sharded step takes no observer pose (nor does the reference's), so
+    `use_cam_pos=True` raises there instead of tracking without ego-motion."""
+    from pf_monocular_pose_estimator_tpu_torch.parallel import make_mesh, make_sharded_tracker
+
     cam = Camera.create(400.0, 400.0, 376.0, 240.0)
     markers = torch.cat([torch.rand(5, 3), torch.ones(5, 1)], 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_tracker(cam, markers, torch.ones(5, dtype=torch.bool), TrackerConfig(**override),
-                     device="cpu")
+    with pytest.raises(ValueError, match="use_cam_pos"):
+        make_sharded_tracker(cam, markers, torch.ones(5, dtype=torch.bool),
+                             TrackerConfig(n_particles=64, use_cam_pos=True), make_mesh(2),
+                             device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -97,11 +92,22 @@ def test_unported_options_raise(override):
         dict(use_fused_pf_kernel=False),
         dict(use_folded_pf_kernel=False),
         dict(use_pallas_gn=False),
+        dict(use_particle_filter=False),
+        dict(number_of_occlusions=1),
+        dict(number_of_false_detections=2),
+        dict(use_online_exposure_control=True),
+        dict(use_cam_pos=True),
+        dict(debug_skip=("resample",)),
+        dict(debug_skip=("propagate",)),
+        dict(debug_skip=("weight",)),
     ],
 )
 def test_ported_switches_run(override):
-    """Each single-device switch builds a tracker on the CPU and tracks the
-    first two golden frames (init, then a PF frame that resamples)."""
+    """Each option builds a tracker on the CPU and tracks the first two
+    golden frames (init, then a frame that resamples, or the IPE branch).
+    With one occlusion the first init fails, as the JAX tracker's does on
+    these frames (its vote histogram is empty: flag 120), so that option
+    tracks frames 1 and 2."""
     d = np.load(PORT.parent / "tests" / "golden" / "golden_sequence.npz")
     cam = Camera.create(float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
                         np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
@@ -110,9 +116,13 @@ def test_ported_switches_run(override):
                            resample_min_ess=0.0, **override)
     step = make_tracker(cam, markers, torch.ones(5, dtype=torch.bool), config, device="cpu")
     state = TargetState.create(2048, device="cpu")
-    for i in range(2):
+    first = 1 if config.number_of_occlusions else 0
+    for i in range(first + 2):
         state, res = step(state, torch.from_numpy(d["frames"][i]), float(d["times"][i]))
-        assert bool(res.pose_updated), f"frame {i} not updated"
+        if i < first:
+            assert int(res.fail_flag) == int(FailFlag.HISTOGRAM_ALL_ZERO)
+        else:
+            assert bool(res.pose_updated), f"frame {i} not updated"
     assert np.isfinite(res.pose.numpy()).all()
 
 

@@ -115,7 +115,9 @@ def test_detect_stats_edge_cases_exact(dev, case, shape, k):
     assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
 
 
-def _pf_inputs(dev, n, rng):
+def _pf_inputs(dev, n, rng, cam_move_inv=None):
+    """A bank scattered around a pose, kernel B's parameters for one pass
+    (its left matrix `cam_move_inv`, the identity unless given)."""
     gt = exp_se3(torch.tensor([0.02, -0.01, 0.0, 0.1, -0.2, 0.3])).to(dev)
     gt[2, 3] += 1.3
     tw = torch.from_numpy(rng.normal(0, 0.02, (n, 6)).astype(np.float32)).to(dev)
@@ -131,10 +133,16 @@ def _pf_inputs(dev, n, rng):
     scal = torch.tensor([420.0, 418.0, 376.0, 240.0, 10.0, 5.0, 5.0, 0.0], device=dev)
     lo = torch.tensor([-0.02] * 3 + [-0.01] * 3, device=dev)
     step = exp_se3(torch.tensor([0.001, 0.0, 0.002, 0.0, 0.01, 0.0], device=dev))
-    prm = sk.pack_params(torch.eye(4, device=dev), step, gt, gt @ step, lo, -lo, scal, markers,
+    left = torch.eye(4, device=dev) if cam_move_inv is None else cam_move_inv.to(dev)
+    prm = sk.pack_params(left, step, gt, gt @ step, lo, -lo, scal, markers,
                          torch.ones(5, dtype=torch.bool, device=dev), det_xy, det_mask,
                          torch.tensor([False, True, False, False, False], device=dev))
     return bank, prm
+
+
+# an observer that moved: ~1e-2 in translation and rotation (ego-motion's
+# cam_move_inv, the left matrix of kernel B's compose)
+OBSERVER_MOVE = (0.012, -0.008, 0.01, 0.01, -0.015, 0.008)
 
 
 GREEDY_CASES = ("ties", "masked", "all_masked", "tol_inf", "tol_huge")
@@ -287,6 +295,75 @@ def test_pf_step_matches_plain(dev, n, offset):
     assert torch.equal(got_b, want_b)
     assert torch.equal(got_w, want_w)
     assert float(got_w.max()) > 20.0
+
+
+@pytest.mark.parametrize("n,offset", [(4099, 0), (2048, 1000), (100_000, 0)])
+def test_pf_step_moving_observer_exact(dev, n, offset):
+    """Kernel B with a cam_move_inv that is not the identity (the observer's
+    ego-motion): bank and weights equal to the plain version bit for bit, as
+    with the identity, and the bank moved by it."""
+    rng = np.random.default_rng(2)
+    move = exp_se3(torch.tensor(OBSERVER_MOVE))
+    bank, prm = _pf_inputs(dev, n, rng, cam_move_inv=move)
+    _, prm_still = _pf_inputs(dev, n, np.random.default_rng(2))
+    keys = (*prng.split(prng.prng_key(3))[0], *prng.split(prng.prng_key(3))[1])
+    got_b, got_w = sk.pf_step(bank, prm, keys, 5, 16, lane_offset=offset, n_total=n + offset)
+    want_b, want_w = sk.pf_step_plain(bank, prm, keys, 5, 16, lane_offset=offset,
+                                      n_total=n + offset)
+    still_b, _ = sk.pf_step(bank, prm_still, keys, 5, 16, lane_offset=offset, n_total=n + offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got_b, want_b)
+    assert torch.equal(got_w, want_w)
+    assert float((got_b - still_b)[:12].abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_pf_pass_moving_observer_exact(dev, shards):
+    """The sharded pass (`parallel/pf_kernels.py`: kernel B on each shard at
+    its lane offset) with a moving observer equals the whole-bank pass bit
+    for bit, and both equal the plain version."""
+    from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
+    from pf_monocular_pose_estimator_tpu_torch.parallel.pf_kernels import make_sharded_pf_fn
+    from pf_monocular_pose_estimator_tpu_torch.pf.propagate import NoiseBounds
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+
+    n = 20_000
+    rng = np.random.default_rng(5)
+    bank, prm = _pf_inputs(dev, n, rng)
+    cam = Camera.create(420.0, 418.0, 376.0, 240.0).to(dev)
+    gt = prm[32:48].reshape(4, 4)  # the current pose of _pf_inputs
+    step = exp_se3(torch.tensor([0.001, 0.0, 0.002, 0.0, 0.01, 0.0])).to(dev)
+    move = exp_se3(torch.tensor(OBSERVER_MOVE)).to(dev)
+    markers = torch.cat([torch.from_numpy(rng.normal(0, 0.08, (5, 3)).astype(np.float32)),
+                         torch.ones(5, 1)], 1).to(dev)
+    det_xy = torch.zeros(16, 2, device=dev)
+    det_xy[:5] = project_markers(cam, move @ gt @ step, markers)
+    det_mask = torch.arange(16, device=dev) < 5
+    noise = NoiseBounds(*(torch.tensor(v, device=dev) for v in (-0.02, 0.02, -0.01, 0.01)))
+    args = (prng.prng_key(9), bank, gt, move @ gt @ step, step, move, noise,
+            torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev), True, True, 1.0)
+    weigh = (markers, torch.ones(5, dtype=torch.bool, device=dev), det_xy, det_mask,
+             torch.tensor(10.0, device=dev), torch.tensor(5.0, device=dev),
+             torch.zeros(5, dtype=torch.bool, device=dev), 5.0)
+    want_b, want_w = sk.fused_propagate_weight(*args, cam, *weigh, want_pairs=False)
+    mesh = LocalMesh(shards)
+    pf_fn = make_sharded_pf_fn(mesh, cam, TrackerConfig(n_particles=n))
+    before = sk.pf_step.launches
+    got_b, got_w = pf_fn(args[0], shard_lanes(mesh, bank), *args[2:], *weigh)
+    prm_m, keys4 = sk.step_params(args[0], *args[2:], cam, *weigh)
+    plain_b, plain_w = sk.pf_step_plain(bank, prm_m, keys4, 5, 16)
+    torch.cuda.synchronize()
+    assert sk.pf_step.launches == before + shards
+    assert torch.equal(unshard_lanes(mesh, got_b), want_b)
+    assert torch.equal(unshard_lanes(mesh, got_w), want_w)
+    assert torch.equal(want_b, plain_b) and torch.equal(want_w, plain_w)
+    assert float(want_w.max()) > 20.0  # the moved detections are matched
+
+
+def project_markers(cam, pose, markers):
+    from pf_monocular_pose_estimator_tpu_torch.geometry import project
+
+    return project(cam, pose, markers)
 
 
 def test_pf_step_pairs_matches_plain(dev):
