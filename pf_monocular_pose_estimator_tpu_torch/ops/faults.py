@@ -46,10 +46,10 @@ def inject_faults(key, detections: Detections, num_occlusions: int, num_false_de
     if num_occlusions > 0:
         # random priorities over the true detections; the first
         # `num_occlusions` of them are the candidates, distinct by construction
-        prio = prng.uniform(key_occ, (k_cap,)).to(dev)
+        prio = prng.uniform(key_occ, (k_cap,)).to(dev)  # hashed on the host, as below
         prio = torch.where(mask, prio, torch.full((), -1.0, device=dev))
         order = _argsort_stable(-prio)
-        coins = prng.bernoulli(key_coin, 0.5, (num_occlusions,)).to(dev)
+        coins = prng.bernoulli(key_coin, 0.5, (num_occlusions,), device=dev)
         # the reference's candidates past the capacity repeat the last slot
         # and can never be taken (i >= k_cap >= n_true)
         n = min(num_occlusions, k_cap)
@@ -63,11 +63,12 @@ def inject_faults(key, detections: Detections, num_occlusions: int, num_false_de
     if num_false_detections > 0:
         nf = num_false_detections
         base_n = torch.clamp(torch.sum(mask.to(torch.int32)), min=1)
-        picks = prng.randint(key_pick, (nf,), 0, base_n)
+        picks = prng.randint(key_pick, (nf,), 0, base_n, device=dev)
         src_idx = _argsort_stable(~mask)[picks.long()]  # the i-th currently valid slot
-        sign = prng.rademacher(key_off, (nf, 2)).to(torch.float32)
-        mag = prng.randint(prng.fold_in(key_off, 1), (nf, 2), 1, int(false_offset_max) + 1)
-        offsets = (sign * mag.to(torch.float32)).to(dev)
+        sign = prng.rademacher(key_off, (nf, 2), device=dev).to(torch.float32)
+        mag = prng.randint(prng.fold_in(key_off, 1), (nf, 2), 1, int(false_offset_max) + 1,
+                           device=dev)
+        offsets = sign * mag.to(torch.float32)
         # free slots first; occluded slots keep their coordinates
         free_order = _argsort_stable(mask | injected | occluded)
         any_true = torch.any(detections.mask)

@@ -139,6 +139,7 @@ class Tracker:
         m = self.markers_h.shape[0]
         down = list(config.marker_downgrade) + [False] * (m - len(config.marker_downgrade))
         self.downgrade = torch.tensor(down[:m], dtype=torch.bool, device=self.device)
+        self._eye4 = torch.eye(4, device=self.device)
         self.dyn = DynamicParams.from_config(config, self.device)
         self._dyn_host = {n: float(_F32(getattr(config, n))) for n in _HOST_DYN}
         self.params = config.blob_params()
@@ -150,6 +151,11 @@ class Tracker:
     # ------------------------------------------------------------ helpers
     def _t(self, v, dtype=torch.float32) -> torch.Tensor:
         return torch.tensor(v, dtype=dtype, device=self.device)
+
+    def _on_device(self, v) -> torch.Tensor:
+        """A caller's number, array or tensor as float32 on the tracker's
+        device, with no read back to the host."""
+        return torch.as_tensor(v, dtype=torch.float32).to(self.device)
 
     def _detect(self, image, roi, min_a, max_a, dyn: DynamicParams) -> Detections:
         return find_leds(image, roi, self.params, self.camera, min_a, max_a,
@@ -212,7 +218,7 @@ class Tracker:
             vals = self.host(torch.stack([getattr(dyn, n) for n in _HOST_DYN]))
             dyn_host = dict(zip(_HOST_DYN, vals))
         image = image.to(self.device)
-        t = self._t(float(t))
+        t = self._on_device(t)
         it, unc, coast, deg = self.host(torch.stack([
             state.it_since_initialized, state.uncertainty, state.coast_frames,
             state.degraded_frames]))
@@ -222,13 +228,11 @@ class Tracker:
         if it < 1:
             state, det, best_weight, used_bf = self._init_branch(state, image, t, dyn, counters)
         elif self.config.use_particle_filter:
-            cam_move_inv = torch.eye(4, device=self.device)
+            cam_move_inv = self._eye4
             if self.config.use_cam_pos:
-                obs_pose = (torch.eye(4) if obs_pose is None else obs_pose)
-                obs_time = self._t(0.0 if obs_time is None else float(obs_time))
-                cam_move_inv, state = _ego_motion(
-                    state, t, torch.as_tensor(obs_pose, dtype=torch.float32).to(self.device),
-                    obs_time)
+                obs_pose = self._eye4 if obs_pose is None else self._on_device(obs_pose)
+                obs_time = self._on_device(0.0 if obs_time is None else obs_time)
+                cam_move_inv, state = _ego_motion(state, t, obs_pose, obs_time)
             state, det, best_weight, used_bf = self._track_branch(state, image, t, dyn, dyn_host,
                                                                   counters, cam_move_inv)
         else:

@@ -20,8 +20,7 @@ Layout of the partitionable stream (reference: `pf/soa.py::_uniform_at`,
     `split(key, d + 1)[d]`.
 
 `bernoulli`, `rademacher` and `randint` draw a handful of values for the
-fault injector: they hash on the host and return CPU tensors (`randint`
-returns its values where its bounds lie).
+fault injector: they hash on the host and put the values on `device`.
 """
 
 from __future__ import annotations
@@ -101,28 +100,26 @@ def uniform(key, shape, device="cpu", minval=0.0, maxval=1.0) -> torch.Tensor:
     return torch.maximum(lo, u * (hi - lo) + lo)
 
 
-def bernoulli(key, p: float, shape) -> torch.Tensor:
+def bernoulli(key, p: float, shape, device="cpu") -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)` for a float32 `p`: `uniform < p`."""
-    return uniform(key, shape) < p
+    return (uniform(key, shape) < p).to(device)
 
 
-def rademacher(key, shape) -> torch.Tensor:
+def rademacher(key, shape, device="cpu") -> torch.Tensor:
     """`jax.random.rademacher(key, shape)`: int32 values of -1 or 1."""
-    return 2 * bernoulli(key, 0.5, shape).to(torch.int32) - 1
+    return 2 * bernoulli(key, 0.5, shape, device).to(torch.int32) - 1
 
 
-def randint(key, shape, minval, maxval) -> torch.Tensor:
+def randint(key, shape, minval, maxval, device="cpu") -> torch.Tensor:
     """`jax.random.randint(key, shape, minval, maxval)` with int32 values.
 
-    The bounds are ints or int tensors in int32's range that broadcast to
-    `shape`, on any device; the values come back on the bounds' device.  As
-    jax does, two 32-bit draws under `split(key)` are reduced modulo the
-    span in uint32 arithmetic, products and sums wrapping at 2**32,
-    and a span of `maxval <= minval` is 1."""
+    The bounds are ints, or int tensors on `device`, in int32's range that
+    broadcast to `shape`.  As jax does, two 32-bit draws under `split(key)`
+    are reduced modulo the span in uint32 arithmetic, products and sums
+    wrapping at 2**32, and a span of `maxval <= minval` is 1."""
     for v in (minval, maxval):
         if not isinstance(v, torch.Tensor) and not -2**31 <= int(v) < 2**31:
             raise ValueError(f"randint bounds must lie in int32's range, got {v}")
-    device = next((v.device for v in (minval, maxval) if isinstance(v, torch.Tensor)), "cpu")
     k1, k2 = split(key)
     counters = torch.arange(math.prod(shape))
     upper = random_bits(k1, counters).reshape(shape).to(device)
