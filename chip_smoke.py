@@ -56,9 +56,31 @@ Phases (any failure raises and exits non-zero):
      re-initialisation after frame 0, kernels B and D never launched;
  14. realistic -- tests/golden/realistic_sequence.npz (120 uint8 frames
      with clutter) with configs/experiments/realistic_golden.yaml's
-     settings: tracked >= 0.95, ATE <= 17 mm, orientation <= 5.62 deg.
-Phases 10-14 each replay a second time warm, for frames per second and
-syncs per frame.
+     settings: tracked >= 0.95, ATE <= 17 mm, orientation <= 5.62 deg;
+ 15. multi -- tests/golden/two_uav_sequence.npz (60 frames, two targets
+     with distinct constellations) through `make_multi_tracker` with
+     configs/experiments/two_uav_bag.yaml's settings, at its 4,000
+     particles and at 100,000 a target: each target tracked >= 0.95 with
+     ATE <= 20 mm (tests/test_two_uav.py's bars); warm replays of both
+     forms (`sequential=True` and `False`) for frames per second;
+ 16. multi-sharded -- `make_sharded_multi_tracker` on a local mesh of 2
+     target groups x 4 shards at 100,000 a target, every block reaching
+     every shard: fail flags equal to phase 15's frame by frame, nothing
+     clipped, updated >= 0.9 and median error <= 20 mm a target; then 6
+     frames over a one-rank `nccl` job through `make_pod_mesh`'s sub-group
+     (and the results gather), equal to the local mesh of one shard bit
+     for bit;
+ 17. checkpoint -- the main path saved after frame 30 and a two-target
+     state after frame 10, each loaded into a fresh state on the card and
+     replayed 10 frames: poses and every leaf equal to the uninterrupted
+     replay bit for bit;
+ 18. synthetic and multihost -- `make_two_target_sequence(seed=2)` renders
+     the two-UAV golden again on the card (poses within 1.2e-7, frames
+     within one uint8 level, the differing pixels counted), then
+     `run_multihost --frames 20` in this process at its 1,000,000 particles
+     must track every frame.
+Phases 10-15 each replay a second time warm, for frames per second and
+syncs per frame; every phase counts its kernel launches.
 Phase 3 also holds kernel B with a moving observer (ego-motion's
 cam_move_inv, a ~1e-2 twist) to its plain version, whole and per shard,
 and F and G to their plain versions at 1,000,000 lanes, and
@@ -133,6 +155,13 @@ REALISTIC = dict(n_particles=2000, pf_max_retries=20, min_blob_area=8.0, thresho
                  init_cluster_radius=120.0, init_cluster_min=5)
 REALISTIC_CAMERA = dict(fx=621.75, fy=621.39, cx=404.95, cy=238.26,
                         dist=(-0.36, 0.13, 0.0005, -0.0005, 0.0), width=752, height=480)
+# configs/experiments/two_uav_bag.yaml: its `tracker:` block and its camera
+# (configs/camera_mvbluefox.yaml), written out for the same reason
+# (tests/test_torch_multi.py holds them equal)
+TWO_UAV_GOLDEN = ROOT / "tests" / "golden" / "two_uav_sequence.npz"
+TWO_UAV = dict(n_particles=4000, pf_max_retries=8, min_blob_area=8.0, threshold_value=150.0,
+               init_cluster_radius=120.0, init_cluster_min=5)
+TWO_UAV_CAMERA = REALISTIC_CAMERA
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM bytes per
 # second and float32 operations per second outside the tensor cores.  The
@@ -1372,6 +1401,278 @@ def ported_options(device, d, cam, markers, card, main_run, counted_replay, warm
     return out
 
 
+def multi_replay(device, d, cam, markers_t, masks_t, n_particles: int, sequential: bool = True,
+                 mesh=None, frames=None, state=None, overrides=None, **sharded):
+    """One two-target replay of frames `frames` (a range; all of `d`'s unless
+    given) with configs/experiments/two_uav_bag.yaml's settings at
+    `n_particles` a target, plus `overrides`: `make_multi_tracker`, or with `mesh`
+    `make_sharded_multi_tracker` (`sharded` passed on).  Starts from `state`
+    (the states of `create_states(2, n, 0)` unless given).  Returns per frame
+    and target the poses, updated and fail flags, cumulative clipped draws,
+    the seconds, the step and the last state."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.parallel import (make_sharded_multi_tracker,
+                                                                shard_target_state)
+    from pf_monocular_pose_estimator_tpu_torch.tracker import create_states, make_multi_tracker
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+
+    config = TrackerConfig(**dict(TWO_UAV, n_particles=n_particles), **(overrides or {}))
+    frames = range(len(d["frames"])) if frames is None else frames
+    if state is None:
+        state = create_states(2, n_particles, 0, (cam.width, cam.height), device=device)
+        if mesh is not None:
+            state = shard_target_state(state, mesh, batched=True)
+    if mesh is None:
+        step = make_multi_tracker(cam, markers_t, masks_t, config, sequential=sequential,
+                                  device=device)
+    else:
+        step = make_sharded_multi_tracker(cam, markers_t, masks_t, config, mesh, device=device,
+                                          **sharded)
+    images = torch.from_numpy(d["frames"][frames.start:frames.stop]).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = []
+    for j, i in enumerate(frames):
+        state, res = step(state, images[j], float(d["times"][i]))
+        results.append(res)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stack = lambda name: torch.stack([getattr(r, name) for r in results]).cpu().numpy()
+    n = len(frames)
+    return SimpleNamespace(poses=stack("pose"), updated=stack("pose_updated"),
+                           flags=stack("fail_flag"), clipped=stack("resample_clipped"),
+                           seconds=seconds, step=step, state=state, n_particles=n_particles,
+                           syncs_per_frame=step.host.count / step.frames,
+                           frames_per_second=n / seconds, frames=frames)
+
+
+def multi_bars(tag, run, gt, min_tracked: float, max_ate: float | None = None,
+               max_median: float | None = None) -> list:
+    """Per target: tracked fraction, ATE / median translation error and
+    orientation error over the updated frames, against the given bars."""
+    rows = []
+    for k in range(run.poses.shape[1]):
+        upd = run.updated[:, k]
+        est, want = run.poses[upd, k], gt[run.frames.start:run.frames.stop][upd, k]
+        ate, ori = accuracy(est, want)
+        err = np.linalg.norm(est[:, :3, 3] - want[:, :3, 3], axis=-1)
+        rows.append(dict(target=k, tracked=float(upd.mean()), ate_mm=ate * 1e3,
+                         median_mm=float(np.median(err)) * 1e3, orientation_deg=ori))
+    print(f"[{tag}] {run.n_particles} particles a target: {rows}; flags "
+          f"{sorted(set(run.flags.ravel().tolist()))}; {run.syncs_per_frame:.2f} syncs a frame")
+    for r in rows:
+        assert r["tracked"] >= min_tracked, f"{tag}: target {r['target']} tracked {r['tracked']}"
+        assert max_ate is None or r["ate_mm"] <= max_ate * 1e3, f"{tag}: {r}"
+        assert max_median is None or r["median_mm"] <= max_median * 1e3, f"{tag}: {r}"
+    return rows
+
+
+def checkpoint_resume(device, tag, run_to, resume, like):
+    """Save the state of `run_to()` (after the checkpoint frame), run on from
+    it uninterrupted (`resume(state)`), then load the file into `like` (a
+    fresh state on the card) and run the same frames again: every pose and
+    every leaf of the final state must be equal bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.utils import load_state, save_state
+
+    state = run_to()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/state.npz"
+        save_state(path, state)
+        loaded = load_state(path, like)
+    for f in dataclasses.fields(state):
+        assert torch.equal(getattr(loaded, f.name), getattr(state, f.name)), f"{tag}: {f.name}"
+    straight, poses_a = resume(state)
+    again, poses_b = resume(loaded)
+    assert np.array_equal(poses_a, poses_b), f"{tag}: resumed poses differ"
+    differ = [f.name for f in dataclasses.fields(state)
+              if not torch.equal(getattr(straight, f.name), getattr(again, f.name))]
+    assert not differ, f"{tag}: resumed state differs in {differ}"
+    print(f"[checkpoint] {tag}: {poses_a.shape[0]} resumed frames equal the uninterrupted "
+          f"replay bit for bit (poses and all {len(dataclasses.fields(state))} leaves)")
+    return poses_a.shape[0]
+
+
+def multi_target_phases(device, card, counted, main_args) -> dict:
+    """Phases 15-18: the two-UAV golden through the multi-tracker (4,000 and
+    100,000 particles a target, both forms), the targets x particles tracker
+    on a local mesh and over a one-rank `nccl` sub-group, checkpoints, the
+    renderer on the card and `run_multihost`.  `counted(tag, fn, *args,
+    **kwargs)` runs fn with every launch count set to 0 just before and
+    attaches the counts read just after."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
+    from pf_monocular_pose_estimator_tpu_torch.io import (demo_markers, make_two_target_sequence,
+                                                          second_markers)
+    from pf_monocular_pose_estimator_tpu_torch.parallel import distributed, make_mesh
+    from pf_monocular_pose_estimator_tpu_torch.tracker import (TargetState, create_states,
+                                                               make_tracker, pad_marker_sets)
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+    from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
+
+    out = {}
+    d = np.load(TWO_UAV_GOLDEN)
+    c = TWO_UAV_CAMERA
+    cam = Camera.create(c["fx"], c["fy"], c["cx"], c["cy"], np.asarray(c["dist"], np.float32),
+                        c["width"], c["height"], device=device)
+    markers_t, masks_t = pad_marker_sets([demo_markers(device), second_markers(device)])
+    gt = d["poses"]
+    pf_kernels = ("threshold_blur", "detect_stats", "pf_step", "gn_refine")
+
+    def launched(tag, run, names):
+        missing = [n for n in names if run.launches[n] == 0]
+        assert not missing, f"{tag}: never launched {missing}"
+
+    def summary(cold, warm, rows):
+        return {"frames_per_second": warm.frames_per_second,
+                "syncs_per_frame": warm.syncs_per_frame, "targets": rows,
+                "launches": cold.launches}
+
+    # 15. multi: the experiment's 4,000 particles, then the main path's 100,000
+    small = counted("multi-4k", multi_replay, device, d, cam, markers_t, masks_t,
+                    TWO_UAV["n_particles"])
+    launched("multi-4k", small, pf_kernels)
+    rows_small = multi_bars("multi-4k", small, gt, 0.95, max_ate=0.02)
+    multi = counted("multi", multi_replay, device, d, cam, markers_t, masks_t, N_PARTICLES)
+    launched("multi", multi, pf_kernels)
+    rows = multi_bars("multi", multi, gt, 0.95, max_ate=0.02)
+    warm = multi_replay(device, d, cam, markers_t, masks_t, N_PARTICLES)
+    batched = counted("multi-batched", multi_replay, device, d, cam, markers_t, masks_t,
+                      N_PARTICLES, sequential=False)
+    assert np.array_equal(batched.flags, multi.flags), "multi: the two forms' flags differ"
+    same = bool(np.array_equal(batched.poses, multi.poses))
+    for tag, run in (("sequential", warm), ("batched", batched)):
+        print(f"[multi] {card}: {tag} warm replay {run.frames_per_second:.2f} frames/s at "
+              f"{N_PARTICLES} particles a target ({1e3 / run.frames_per_second:.2f} ms/frame), "
+              f"{run.syncs_per_frame:.2f} device->host syncs per frame")
+    print(f"[multi] batched poses equal the sequential ones bit for bit: {same}")
+    out["multi_4k"] = dict(summary(small, multi_replay(device, d, cam, markers_t, masks_t,
+                                                       TWO_UAV["n_particles"]), rows_small),
+                           n_particles=TWO_UAV["n_particles"])
+    out["multi"] = dict(summary(multi, warm, rows), n_particles=N_PARTICLES,
+                        batched_frames_per_second=batched.frames_per_second,
+                        batched_syncs_per_frame=batched.syncs_per_frame,
+                        batched_poses_equal=same)
+
+    # 16. multi-sharded: 2 targets over a (2 targets x 4 particles) local mesh,
+    # every block reaching every shard
+    mesh = make_mesh(MESH_SHARDS, target_shards=2)
+    ring = dict(resample_reach=MESH_SHARDS - 1, payload_window=None)
+    sharded = counted("multi-sharded", multi_replay, device, d, cam, markers_t, masks_t,
+                      N_PARTICLES, mesh=mesh, **ring)
+    launched("multi-sharded", sharded, ("threshold_blur", "detect_stats", "pf_step",
+                                        "ring_gather", "gn_refine"))
+    rows_sh = multi_bars("multi-sharded", sharded, gt, 0.9, max_median=0.02)
+    differ = np.argwhere(sharded.flags != multi.flags).tolist()
+    assert not differ, f"multi-sharded: flags differ from phase 15's at (frame, target) {differ}"
+    assert int(sharded.clipped[-1].max()) == 0, f"multi-sharded: clipped {sharded.clipped[-1]}"
+    got = sharded.launches
+    assert got["pf_step"] % MESH_SHARDS == 0 and got["resample_gather"] == 0
+    assert got["ring_gather"] == multi.launches["resample_gather"], \
+        f"multi-sharded: {got['ring_gather']} launches of H, not one a resampling " \
+        f"({multi.launches['resample_gather']})"
+    sharded_warm = multi_replay(device, d, cam, markers_t, masks_t, N_PARTICLES, mesh=mesh,
+                                **ring)
+    print(f"[multi-sharded] {card}: warm replay {sharded_warm.frames_per_second:.2f} frames/s, "
+          f"{sharded_warm.syncs_per_frame:.2f} syncs per frame")
+    out["multi_sharded"] = dict(summary(sharded, sharded_warm, rows_sh), shards=MESH_SHARDS,
+                                target_shards=2, clipped=sharded.clipped[-1].tolist())
+
+    # ... then 6 frames over a one-rank nccl job through make_pod_mesh's sub-group
+    # (resampling on every tracked frame, as phase 9)
+    every = dict(frames=range(6), overrides=dict(resample_min_ess=0.0))
+    local = multi_replay(device, d, cam, markers_t, masks_t, N_PARTICLES,
+                         mesh=make_mesh(1, target_shards=1), **every)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            pod = distributed.make_pod_mesh(target_devices=1)
+            assert pod.group is not None and pod.size == 1 and pod.target_shards == 1
+            group = multi_replay(device, d, cam, markers_t, masks_t, N_PARTICLES, mesh=pod,
+                                 **every)
+        finally:
+            dist.destroy_process_group()
+    assert np.array_equal(group.flags, local.flags) and np.array_equal(group.poses, local.poses)
+    assert torch.equal(group.state.bank, local.state.bank), "one-rank nccl group: banks differ"
+    print(f"[multi-group] one rank over nccl: 6 frames, 2 targets at {N_PARTICLES} particles "
+          f"equal the local mesh of one shard bit for bit (poses, flags, banks); the results "
+          f"gather counted: {group.syncs_per_frame:.2f} syncs per frame against "
+          f"{local.syncs_per_frame:.2f}")
+
+    # 17. checkpoints: the main path saved after frame 30 and resumed over
+    # frames 31-40; a two-target state saved after frame 10, resumed over 11-20
+    g, g_cam, g_markers = main_args
+    config = TrackerConfig(**MAIN)
+    ones = torch.ones(g_markers.shape[0], dtype=torch.bool)
+
+    def main_to(n):
+        step = make_tracker(g_cam, g_markers, ones, config, device=device)
+        state = TargetState.create(N_PARTICLES, prng_key(0), device=device)
+        for i in range(n):
+            state, _ = step(state, torch.from_numpy(g["frames"][i]).to(device),
+                            float(g["times"][i]))
+        return state
+
+    def main_from(state):
+        step = make_tracker(g_cam, g_markers, ones, config, device=device)
+        poses = []
+        for i in range(31, 41):
+            state, res = step(state, torch.from_numpy(g["frames"][i]).to(device),
+                              float(g["times"][i]))
+            poses.append(res.pose)
+        return state, torch.stack(poses).cpu().numpy()
+
+    n_main = checkpoint_resume(device, "main path, frame 30", lambda: main_to(31), main_from,
+                               TargetState.create(N_PARTICLES, device=device))
+
+    def multi_from(state):
+        run = multi_replay(device, d, cam, markers_t, masks_t, N_PARTICLES, frames=range(11, 21),
+                           state=state)
+        return run.state, run.poses
+
+    n_multi = checkpoint_resume(
+        device, "two targets, frame 10",
+        lambda: multi_replay(device, d, cam, markers_t, masks_t, N_PARTICLES,
+                             frames=range(11)).state,
+        multi_from, create_states(2, N_PARTICLES, 5, device=device))
+    out["checkpoint"] = dict(main_frames_resumed=n_main, multi_frames_resumed=n_multi)
+
+    # 18. the renderer on the card: the two-UAV golden again, then run_multihost
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = make_two_target_sequence(cam, demo_markers(device), second_markers(device),
+                                   num_frames=60, fps=50.0, seed=2, device=device)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    pose_diff = np.abs(seq.poses.cpu().numpy() - gt)
+    levels = np.abs(seq.frames.to(torch.uint8).cpu().numpy().astype(np.int16)
+                    - d["frames"].astype(np.int16))
+    render = dict(pose_max_abs_diff=float(pose_diff.max()),
+                  pose_elements_differing=int((pose_diff > 0).sum()),
+                  max_level_diff=int(levels.max()), pixels_differing=int((levels > 0).sum()),
+                  pixels=int(levels.size), ms_per_frame=render_s * 1e3 / 60)
+    print(f"[synthetic] {card}: two_uav_sequence.npz regenerated on the card: {render}")
+    assert render["pose_max_abs_diff"] <= 1.2e-7, f"synthetic: poses {render}"
+    assert render["max_level_diff"] <= 1, f"synthetic: frames {render}"
+    mh = counted("multihost", lambda: SimpleNamespace(
+        line=distributed.run_multihost(["--frames", str(SHORT_FRAMES)])))
+    launched("multihost", mh, ("threshold_blur", "detect_stats", "pf_step", "gn_refine"))
+    print(f"[multihost] {card}: {mh.line}")
+    assert mh.line["tracked"] == mh.line["frames"] == SHORT_FRAMES, f"multihost: {mh.line}"
+    out["synthetic"] = render
+    out["multihost"] = dict(mh.line, launches=mh.launches)
+    for name in ("multi_4k", "multi", "multi_sharded", "checkpoint"):
+        print(f"[{name}] {card}: {out[name]}")
+    return out
+
+
 def accuracy(est, gt):
     err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
     rel = np.einsum("tij,tkj->tik", est[:, :3, :3], gt[:, :3, :3])
@@ -1435,20 +1736,25 @@ def main() -> int:
                 "ring_gather": (hk.ring_gather, "launches"),
                 "gn_refine": (rk.gn_refine, "launches")}
 
+    def counted(tag, fn, *args, **kwargs):
+        """fn(*args, **kwargs) with every launch count set to 0 just before
+        it; the counts read just after are attached to its result."""
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        run = fn(*args, **kwargs)
+        run.launches = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
+        print(f"[{tag}] launches in the replay: {run.launches}")
+        return run
+
     def counted_replay(tag, *args, bars=True, all_updated=True, golden=None, **kwargs):
         """A replay (of `golden` = (data, camera, markers), the golden sequence
-        unless given) with every launch count set to 0 just before it and read
-        just after; with `all_updated` every frame must update and, with
-        `bars`, the golden sequence's accuracy bars hold.  ATE and orientation
-        error are over the updated frames."""
+        unless given), its launches counted; with `all_updated` every frame
+        must update and, with `bars`, the golden sequence's accuracy bars
+        hold.  ATE and orientation error are over the updated frames."""
         data, camera, marks = golden or (d, cam, markers)
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        run = replay(device, data, camera, marks, *args, **kwargs)
-        run.launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        run = counted(tag, replay, device, data, camera, marks, *args, **kwargs)
         n_frames = run.poses.shape[0]
         run.ate, run.ori = accuracy(run.poses[run.updated], data["poses"][:n_frames][run.updated])
-        print(f"[{tag}] launches in the replay: {run.launches}")
         print(f"[{tag}] {run.n_particles} particles, {n_frames} frames: updated "
               f"{int(run.updated.sum())}/{n_frames}, ATE {run.ate * 1e3:.3f} mm, orientation "
               f"{run.ori:.3f} deg, flags {sorted(set(run.flags.tolist()))}, first pass "
@@ -1544,6 +1850,9 @@ def main() -> int:
     # 10-14. the options ported last, each counted, then a warm second replay
     new_paths = ported_options(device, d, cam, markers, card, main_run, counted_replay,
                                warm_replay, summary)
+
+    # 15-18. two targets, targets x particles, checkpoints, the renderer, multihost
+    new_paths.update(multi_target_phases(device, card, counted, (d, cam, markers)))
 
     for r in rows:
         # each kernel's launches on the path it lies on: A-D on the main path, E

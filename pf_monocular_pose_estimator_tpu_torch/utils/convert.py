@@ -32,7 +32,10 @@ def _tensor(v, device) -> torch.Tensor:
 
 
 def state_from_reference(fields: dict, device="cpu") -> TargetState:
-    """Reference `TargetState` fields (numpy) -> the port's `TargetState`."""
+    """Reference `TargetState` fields (numpy) -> the port's `TargetState`.
+    A multi-target state (leaves with a leading target axis, as the
+    reference's `vmap`ped states) keeps that axis on every leaf: key (T, 2),
+    exposure fields (T,)."""
     fields = dict(fields)
     exposure = fields.pop("exposure")
     values = (
@@ -40,15 +43,16 @@ def state_from_reference(fields: dict, device="cpu") -> TargetState:
         else list(exposure)
     )
     out = {k: _tensor(v, device) for k, v in fields.items() if k != "key"}
-    out["key"] = torch.from_numpy(np.asarray(fields["key"]).astype(np.int64).reshape(2).copy())
-    for name, v, dtype in zip(_STATE_EXPOSURE, values, (torch.int32, torch.int32, torch.float32)):
-        out[name] = torch.tensor(np.asarray(v).item(), dtype=dtype, device=device)
+    out["key"] = torch.from_numpy(np.asarray(fields["key"]).astype(np.int64))
+    for name, v, dtype in zip(_STATE_EXPOSURE, values, (np.int32, np.int32, np.float32)):
+        out[name] = torch.from_numpy(np.asarray(v).astype(dtype)).to(device)
     return TargetState(**out)
 
 
 def state_to_reference(state: TargetState) -> dict:
     """The port's `TargetState` -> reference field dict of numpy arrays
-    (`exposure` as a (counter_increase, counter_decrease, exposure_us) tuple)."""
+    (`exposure` as a (counter_increase, counter_decrease, exposure_us) tuple),
+    single or multi-target."""
     out = {}
     for f in dataclasses.fields(state):
         if f.name in _STATE_EXPOSURE:

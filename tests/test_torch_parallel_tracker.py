@@ -261,15 +261,17 @@ def test_sharded_tracker_against_jax_sharded(golden):
 
 def test_distributed_entry_single_process():
     """One process: initialisation is a no-op, the pod mesh one local
-    shard, and `run_multihost` names the module it waits for."""
+    shard, and `run_multihost` takes the reference's arguments (it runs in
+    tests/test_torch_parallel_multi.py)."""
     assert distributed.initialize_distributed() == 0
     assert distributed.initialize_distributed("file:///nowhere", 1, 0) == 0
     mesh = distributed.make_pod_mesh()
     assert isinstance(mesh, LocalMesh) and mesh.size == 1
     frame = distributed.broadcast_frame(np.arange(6, dtype=np.uint8).reshape(2, 3), "cpu")
     assert frame.dtype == torch.float32 and frame.tolist() == [[0, 1, 2], [3, 4, 5]]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        distributed.run_multihost([])
+    with pytest.raises(SystemExit) as done:
+        distributed.run_multihost(["--help"])
+    assert done.value.code == 0
 
 
 # ------------------------------------------------------ two gloo ranks
