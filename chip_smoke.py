@@ -78,7 +78,19 @@ Phases (any failure raises and exits non-zero):
      the two-UAV golden again on the card (poses within 1.2e-7, frames
      within one uint8 level, the differing pixels counted), then
      `run_multihost --frames 20` in this process at its 1,000,000 particles
-     must track every frame.
+     must track every frame;
+ 19. cli -- the port's run_tracker CLI (`io/cli.py::main`) in this process:
+     the golden with phase 4's configuration (flags equal to phase 4's,
+     ATE within 1e-6 m, the same launches), realistic_golden.yaml through
+     the port's YAML reader (flags equal to phase 14's, its bars), recorded
+     to a .pfsq and replayed from it through the native reader (flags
+     equal), two_uav_bag.yaml (flags equal to phase 15's at 4,000
+     particles, its bars), and uav_target, two_targets, outlier_robustness,
+     outdoor_expo and ipe_legacy at their own settings (uav_target with
+     --save-video; ipe_legacy launching neither B nor D); then the golden
+     pushed at 50 fps through `FramePipe` into the main-path tracker, and
+     one `python -m ...io.cli --profile` process whose trace must hold
+     device events of kernel A.
 Phases 10-15 each replay a second time warm, for frames per second and
 syncs per frame; every phase counts its kernel launches.
 Phase 3 also holds kernel B with a moving observer (ego-motion's
@@ -102,8 +114,9 @@ launches, `index_select` and its bound, with the device time of one whole
 ring resampling (`ring_timings`).  `python3 chip_smoke.py --ring-only`
 runs only phases 1, 2 and that comparison, without the one-launch form,
 so that a checkout from before it can be measured on the same card.
-The last three lines are the card, the kernel table and the device line.
-It imports nothing of JAX.
+The experiments' settings are read from configs/experiments/ with the
+port's own YAML reader.  The last three lines are the card, the kernel
+table and the device line.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -147,21 +160,36 @@ IPE = dict(use_particle_filter=False)  # configs/experiments/ipe_legacy.yaml, 64
 IPE_PARTICLES = 64
 # ego-motion's cam_move_inv in kernel B's check: a twist of ~1e-2
 OBSERVER_MOVE = (0.012, -0.008, 0.01, 0.01, -0.015, 0.008)
-# configs/experiments/realistic_golden.yaml: its `tracker:` block and its
-# camera (configs/camera_mvbluefox.yaml), written out because the card's
-# Python has no yaml reader (tests/test_torch_goldens.py holds them equal)
-REALISTIC_GOLDEN = ROOT / "tests" / "golden" / "realistic_sequence.npz"
-REALISTIC = dict(n_particles=2000, pf_max_retries=20, min_blob_area=8.0, threshold_value=180.0,
-                 init_cluster_radius=120.0, init_cluster_min=5)
-REALISTIC_CAMERA = dict(fx=621.75, fy=621.39, cx=404.95, cy=238.26,
-                        dist=(-0.36, 0.13, 0.0005, -0.0005, 0.0), width=752, height=480)
-# configs/experiments/two_uav_bag.yaml: its `tracker:` block and its camera
-# (configs/camera_mvbluefox.yaml), written out for the same reason
-# (tests/test_torch_multi.py holds them equal)
-TWO_UAV_GOLDEN = ROOT / "tests" / "golden" / "two_uav_sequence.npz"
-TWO_UAV = dict(n_particles=4000, pf_max_retries=8, min_blob_area=8.0, threshold_value=150.0,
-               init_cluster_radius=120.0, init_cluster_min=5)
-TWO_UAV_CAMERA = REALISTIC_CAMERA
+
+
+def experiment(name: str):
+    """configs/experiments/{name}.yaml through the port's reader: the loaded
+    experiment and its camera as a dict of plain values."""
+    sys.path.insert(0, str(ROOT))
+    from pf_monocular_pose_estimator_tpu_torch.io.experiment import load_experiment
+    from pf_monocular_pose_estimator_tpu_torch.io.markers import load_camera_calibration
+
+    exp = load_experiment(str(ROOT / "configs" / "experiments" / f"{name}.yaml"))
+    cam = load_camera_calibration(exp["camera"], device="cpu")
+    camera = dict(fx=float(cam.fx), fy=float(cam.fy), cx=float(cam.cx), cy=float(cam.cy),
+                  dist=tuple(cam.dist.tolist()), width=cam.width, height=cam.height)
+    return exp, camera
+
+
+# configs/experiments/realistic_golden.yaml and two_uav_bag.yaml: their
+# `tracker:` blocks, cameras and sequences
+REALISTIC_EXPERIMENT, REALISTIC_CAMERA = experiment("realistic_golden")
+REALISTIC = REALISTIC_EXPERIMENT["tracker"]
+REALISTIC_GOLDEN = Path(REALISTIC_EXPERIMENT["run"]["sequence"])
+TWO_UAV_EXPERIMENT, TWO_UAV_CAMERA = experiment("two_uav_bag")
+TWO_UAV = TWO_UAV_EXPERIMENT["tracker"]
+TWO_UAV_GOLDEN = Path(TWO_UAV_EXPERIMENT["run"]["sequence"])
+
+# phase 19: the other committed experiments, each at its own settings
+OTHER_EXPERIMENTS = ("uav_target", "two_targets", "outlier_robustness", "outdoor_expo",
+                     "ipe_legacy")
+# kernel A's four CUDA kernels (csrc/detect.cu)
+KERNEL_A = ("threshold_blur_kernel", "label_kernel", "stats_kernel", "topk_merge_kernel")
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM bytes per
 # second and float32 operations per second outside the tensor cores.  The
@@ -1285,7 +1313,7 @@ def ported_options(device, d, cam, markers, card, main_run, counted_replay, warm
     realistic golden with configs/experiments/realistic_golden.yaml's
     settings and bars."""
     import torch
-    from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
+    from pf_monocular_pose_estimator_tpu_torch.io.markers import load_camera_calibration
     from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
 
     out = {}
@@ -1376,9 +1404,7 @@ def ported_options(device, d, cam, markers, card, main_run, counted_replay, warm
 
     # 14. the realistic golden: clutter, distractors, blur, flicker (uint8)
     r = np.load(REALISTIC_GOLDEN)
-    c = REALISTIC_CAMERA
-    r_cam = Camera.create(c["fx"], c["fy"], c["cx"], c["cy"], np.asarray(c["dist"], np.float32),
-                          c["width"], c["height"], device=device)
+    r_cam = load_camera_calibration(REALISTIC_EXPERIMENT["camera"], device)
     r_markers = torch.from_numpy(np.concatenate([r["markers"], np.ones((5, 1), np.float32)],
                                                 1)).to(device)
     golden = (r, r_cam, r_markers)
@@ -1398,7 +1424,7 @@ def ported_options(device, d, cam, markers, card, main_run, counted_replay, warm
                             tracked=tracked, frames=int(real.poses.shape[0]))
     for name, v in out.items():
         print(f"[{name}] {card}: {v}")
-    return out
+    return out, real
 
 
 def multi_replay(device, d, cam, markers_t, masks_t, n_particles: int, sequential: bool = True,
@@ -1507,8 +1533,8 @@ def multi_target_phases(device, card, counted, main_args) -> dict:
 
     import torch
     import torch.distributed as dist
-    from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
-    from pf_monocular_pose_estimator_tpu_torch.io import (demo_markers, make_two_target_sequence,
+    from pf_monocular_pose_estimator_tpu_torch.io import (demo_markers, load_camera_calibration,
+                                                          make_two_target_sequence,
                                                           second_markers)
     from pf_monocular_pose_estimator_tpu_torch.parallel import distributed, make_mesh
     from pf_monocular_pose_estimator_tpu_torch.tracker import (TargetState, create_states,
@@ -1518,9 +1544,7 @@ def multi_target_phases(device, card, counted, main_args) -> dict:
 
     out = {}
     d = np.load(TWO_UAV_GOLDEN)
-    c = TWO_UAV_CAMERA
-    cam = Camera.create(c["fx"], c["fy"], c["cx"], c["cy"], np.asarray(c["dist"], np.float32),
-                        c["width"], c["height"], device=device)
+    cam = load_camera_calibration(TWO_UAV_EXPERIMENT["camera"], device)
     markers_t, masks_t = pad_marker_sets([demo_markers(device), second_markers(device)])
     gt = d["poses"]
     pf_kernels = ("threshold_blur", "detect_stats", "pf_step", "gn_refine")
@@ -1670,6 +1694,182 @@ def multi_target_phases(device, card, counted, main_args) -> dict:
     out["multihost"] = dict(mh.line, launches=mh.launches)
     for name in ("multi_4k", "multi", "multi_sharded", "checkpoint"):
         print(f"[{name}] {card}: {out[name]}")
+    return out, small
+
+
+def run_cli(argv) -> SimpleNamespace:
+    """The port's `io/cli.py::main(argv + ["--json"])` in this process, its
+    stdout captured: the summary (its last line) and the seconds."""
+    import contextlib
+    import io
+
+    from pf_monocular_pose_estimator_tpu_torch.io import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([*map(str, argv), "--json"])
+    seconds = time.perf_counter() - t0
+    assert rc == 0, f"cli {argv}: exit code {rc}"
+    return SimpleNamespace(summary=json.loads(out.getvalue().strip().splitlines()[-1]),
+                           seconds=seconds)
+
+
+def pipe_replay(device, d, cam, markers) -> SimpleNamespace:
+    """The golden frames pushed at 50 fps by `FramePipe.start_replay`'s native
+    thread into a new main-path tracker, which takes each frame through
+    `pop_latest` (stale ones are discarded); every popped frame must equal
+    the golden frame of its sequence number."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.io.framepipe import FramePipe
+    from pf_monocular_pose_estimator_tpu_torch.tracker import TargetState, make_tracker
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+    from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
+
+    golden = d["frames"]
+    step = make_tracker(cam, markers, torch.ones(markers.shape[0], dtype=torch.bool),
+                        TrackerConfig(**MAIN), device=device)
+    state = TargetState.create(N_PARTICLES, prng_key(0), device=device)
+    pipe = FramePipe(golden.shape[2], golden.shape[1], capacity=8)
+    stepped, tracked, skipped = 0, 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.start_replay(golden, fps=50.0)
+    while (got := pipe.pop_latest(timeout_ms=2000)) is not None:
+        frame, ts, seq, skip = got
+        assert np.array_equal(frame, golden[seq]), f"pipe: frame {seq} differs from the golden"
+        state, res = step(state, torch.from_numpy(frame).to(device), ts)
+        stepped, skipped = stepped + 1, skipped + skip
+        tracked += bool(res.pose_updated)
+        if seq == len(golden) - 1:
+            break
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    pipe.stop_replay()
+    stats = pipe.stats
+    pipe.close()
+    return SimpleNamespace(**stats, stepped=stepped, tracked=tracked, skipped=skipped,
+                           seconds=seconds, frames_per_second=stepped / seconds)
+
+
+def cli_phase(device, card, counted, main_args, main_run, real_run, multi_4k_run) -> dict:
+    """Phase 19: the port's run_tracker CLI (`io/cli.py`), in this process
+    with its launches counted, over the main path (phase 4's configuration:
+    the golden's camera and markers are the CLI's defaults), the realistic
+    golden (flags equal to phase 14's; recorded to a .pfsq and replayed
+    from it through the native reader with the same flags), the two-UAV
+    golden (flags equal to phase 15's at 4,000 particles) and every other
+    committed experiment at its own settings; then the frame pipe at 50 fps
+    into the main-path tracker, and one `python -m` run of the CLI with
+    `--profile`, whose trace must hold device events of kernel A."""
+    import tempfile
+
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.io import default_camera, demo_markers
+    from pf_monocular_pose_estimator_tpu_torch.io.seqio import SequenceReader
+
+    t_phase = time.perf_counter()
+    d, cam, markers = main_args
+    out = {}
+
+    # the CLI's default device is the card; another is passed on
+    dev = [] if device == "cuda" else ["--device", device]
+
+    def cli(tag, argv):
+        run = counted(f"cli {tag}", run_cli, [*argv, *dev])
+        s = run.summary
+        row = dict(frames=s["frames"], tracked_frames=s["tracked_frames"], fps=s["fps"],
+                   time_pose_est_ms_median=s["time_pose_est_ms_median"], seconds=run.seconds,
+                   launches=run.launches)
+        row.update({k: s[k] for k in ("ate_m", "orientation_err_deg", "ate_m_per_target",
+                                      "tracked_fraction_per_target", "exposure_us") if k in s})
+        print(f"[cli] {card}: {tag}: {row}")
+        out[tag] = row
+        return s, run.launches
+
+    # the main path: the CLI's default camera and markers are the golden's
+    want = default_camera(device)
+    for name in ("fx", "fy", "cx", "cy", "dist"):
+        assert torch.equal(getattr(cam, name), getattr(want, name)), f"cli: camera {name}"
+    assert torch.equal(markers, demo_markers(device)), "cli: the golden's markers"
+    s, launches = cli("main", ["--sequence", GOLDEN, "--particles", N_PARTICLES,
+                               "--pf-retries", MAIN["pf_max_retries"]])
+    assert s["flags"] == main_run.flags.tolist(), "cli main: flags differ from phase 4's"
+    assert s["tracked_frames"] == s["frames"] == 60, f"cli main: {s['tracked_frames']} tracked"
+    assert abs(s["ate_m"] - main_run.ate) <= 1e-6, f"cli main: ATE {s['ate_m']} vs {main_run.ate}"
+    assert launches == main_run.launches, f"cli main: launches {launches} vs {main_run.launches}"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the realistic golden through the YAML reader, recorded, then replayed
+        config = ROOT / "configs" / "experiments" / "realistic_golden.yaml"
+        pfsq = Path(tmp) / "realistic.pfsq"
+        s, _ = cli("realistic", ["--config", config, "--record", pfsq])
+        tracked = s["tracked_frames"] / s["frames"]
+        assert s["flags"] == real_run.flags.tolist(), "cli realistic: flags differ from phase 14's"
+        assert tracked >= 0.95 and s["ate_m"] <= 0.017 and s["orientation_err_deg"] <= 5.62, \
+            f"cli realistic: {s}"
+        with SequenceReader(str(pfsq)) as reader:
+            assert reader.native, "cli realistic: the .pfsq reader took the numpy path"
+            frames, times = reader.arrays()
+        r = np.load(REALISTIC_GOLDEN)
+        assert np.array_equal(frames, r["frames"]) and np.array_equal(times, r["times"])
+        replay_s, _ = cli("realistic-pfsq", ["--config", config, "--sequence", pfsq])
+        assert replay_s["flags"] == s["flags"], "cli realistic: the .pfsq replay's flags differ"
+
+        # two UAVs: split markers, per-target ATE
+        s, _ = cli("two_uav", ["--config", ROOT / "configs" / "experiments" / "two_uav_bag.yaml"])
+        assert s["flags"] == multi_4k_run.flags.tolist(), "cli two_uav: flags differ from phase 15's"
+        for frac, ate in zip(s["tracked_fraction_per_target"], s["ate_m_per_target"]):
+            assert frac >= 0.95 and ate <= 0.02, f"cli two_uav: {s}"
+
+        # every other committed experiment at its own settings
+        video = Path(tmp) / "uav_target.npz"
+        for name in OTHER_EXPERIMENTS:
+            extra = ["--save-video", video] if name == "uav_target" else []
+            s, launches = cli(name, ["--config", ROOT / "configs" / "experiments" / f"{name}.yaml",
+                                     *extra])
+            assert launches["detect_stats"] > 0, f"cli {name}: kernel A never launched"
+            if name == "uav_target":
+                # tests/test_experiment.py's bars: all frames but one tracked, ATE < 50 mm
+                assert s["tracked_frames"] >= s["frames"] - 1 and s["ate_m"] < 0.05, f"cli: {s}"
+                v = np.load(video)["frames"]
+                assert v.shape == (60, 480, 752, 3) and v.dtype == np.uint8, v.shape
+            elif name == "ipe_legacy":
+                assert launches["pf_step"] == launches["gn_refine"] == 0, f"cli ipe: {launches}"
+            else:
+                assert launches["pf_step"] > 0 and launches["gn_refine"] > 0, f"cli {name}"
+
+    # the frame pipe: golden frames at 50 fps into the main-path tracker
+    pipe = counted("cli pipe", pipe_replay, device, d, cam, markers)
+    out["pipe"] = {k: getattr(pipe, k) for k in ("pushed", "dropped", "pending", "skipped",
+                                                  "stepped", "tracked", "frames_per_second",
+                                                  "launches")}
+    print(f"[cli] {card}: frame pipe at 50 fps: {out['pipe']}")
+    assert pipe.stepped > 0 and pipe.pushed == len(d["frames"])
+
+    # one fresh process: `python -m ... --profile`, whose trace holds kernel A
+    with tempfile.TemporaryDirectory() as trace_dir:
+        cmd = [sys.executable, "-m", "pf_monocular_pose_estimator_tpu_torch.io.cli", "--synthetic",
+               "--frames", "20", "--particles", str(N_PARTICLES), "--pf-retries",
+               str(MAIN["pf_max_retries"]), "--json", "--profile", trace_dir, *dev]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        assert proc.returncode == 0, f"cli -m: exit code {proc.returncode}\n{proc.stderr[-4000:]}"
+        s = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(Path(trace_dir) / "trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    kernel_a = [e for e in events if e.get("cat") == "kernel"
+                and any(k in e.get("name", "") for k in KERNEL_A)]
+    row = dict(frames=s["frames"], tracked_frames=s["tracked_frames"], fps=s["fps"],
+               ate_m=s["ate_m"], seconds=seconds, kernel_a_events=len(kernel_a),
+               kernel_a_device_us=sum(e.get("dur", 0) for e in kernel_a),
+               device_events=sum(e.get("cat") == "kernel" for e in events))
+    print(f"[cli] {card}: python -m ... --profile: {row}")
+    assert s["frames"] == 20 and kernel_a, f"cli -m: no device events of kernel A: {row}"
+    out["subprocess"] = row
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[cli] phase 19 took {out['seconds']:.1f} s")
     return out
 
 
@@ -1848,11 +2048,16 @@ def main() -> int:
     one_rank_group(device, d, cam, markers)
 
     # 10-14. the options ported last, each counted, then a warm second replay
-    new_paths = ported_options(device, d, cam, markers, card, main_run, counted_replay,
-                               warm_replay, summary)
+    new_paths, real_run = ported_options(device, d, cam, markers, card, main_run,
+                                         counted_replay, warm_replay, summary)
 
     # 15-18. two targets, targets x particles, checkpoints, the renderer, multihost
-    new_paths.update(multi_target_phases(device, card, counted, (d, cam, markers)))
+    multi_paths, multi_4k_run = multi_target_phases(device, card, counted, (d, cam, markers))
+    new_paths.update(multi_paths)
+
+    # 19. the run_tracker CLI over the main path and every committed experiment
+    new_paths["cli"] = cli_phase(device, card, counted, (d, cam, markers), main_run, real_run,
+                                 multi_4k_run)
 
     for r in rows:
         # each kernel's launches on the path it lies on: A-D on the main path, E

@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import sys
 import time
 
 import numpy as np
@@ -137,5 +138,11 @@ def run_multihost(argv=None) -> dict:
     return summary
 
 
+def main(argv=None) -> int:
+    """The console entry (`pfmpe-multihost-torch`): `run_multihost`, exit code 0."""
+    run_multihost(argv)
+    return 0
+
+
 if __name__ == "__main__":
-    run_multihost()
+    sys.exit(main())

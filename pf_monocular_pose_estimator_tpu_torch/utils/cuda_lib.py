@@ -64,35 +64,49 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
+def digest(flags, files) -> str:
+    """A hash of the flags and of each file's name and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in files:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _build(so: Path) -> None:
-    """One nvcc per source, all running at once, then one link into `so`."""
+def cached_build(stem: str, flags, files, build) -> Path:
+    """`build_dir()/lib{stem}_{digest}.so`, made first if absent: `build(tmp,
+    out)` writes it to `out` in the temporary directory `tmp`, and it is moved
+    into place whole, so a build that fails or runs beside another leaves no
+    partial library behind."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"lib{stem}_{digest(flags, files)}.so"
+    if not so.exists():
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            out = os.path.join(tmp, so.name)
+            build(tmp, out)
+            os.replace(out, so)
+    return so
+
+
+def _build(tmp: str, out: str) -> None:
+    """One nvcc per source, all running at once, then one link into `out`."""
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
-        objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / name)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for name, obj in zip(SOURCES, objs)]
-        errors = []
-        for name, proc in zip(SOURCES, procs):
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"{name} ({proc.returncode}):\n{err}")
-        if errors:
-            raise RuntimeError("nvcc failed: " + "\n".join(errors))
-        out = os.path.join(tmp, so.name)
-        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", out, *objs], capture_output=True,
-                              text=True)
+    objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, obj in zip(SOURCES, objs)]
+    errors = []
+    for name, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(out, so)
+            errors.append(f"{name} ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", out, *objs], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
 
 
 def library() -> ctypes.CDLL:
@@ -101,11 +115,7 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"libpfmpe_kernels_{_digest()}.so"
-    if not so.exists():
-        _build(so)
+    so = cached_build("pfmpe_kernels", NVCC_FLAGS, [_CSRC / n for n in SOURCES + HEADERS], _build)
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
