@@ -14,6 +14,19 @@ Phases (any failure raises and exits non-zero):
      operations of this run's inputs) and, where one PyTorch call computes
      the same function, that call's times (`library_ms`,
      `library_device_ms`; the port never calls it);
+     shapes  -- (right after phase 3; tests/test_torch_kernels_cuda.py's
+     grid and input generators) kernels B (both variants), E, D and
+     A against their plain twins beyond the main path's shapes: K in
+     {4, 12, 16, 32, 64, 128}, M in {1, 3, 5, 8, 9, 16, 32}, 0, 4, 12, 20
+     and 32 sweeps, top-k 1, 16, 64, 100 and 128, every bucket of each,
+     max_abs_err 0; the wide shape (M = 16, K = 64 at N = 100,000; D at
+     M = 16; A at 20 sweeps and top-100) timed beside its bound;
+     tests/test_torch_parallel_multi.py's two-target scene at its
+     configuration (max_detections=12) on the card and on the CPU, flags
+     equal on every (frame, target); configs/two_uav_marker_positions.yaml
+     as one object of ten markers on a synthetic orbit (the init from a
+     fresh state, then seven tracked frames from frame 0's pose) on the card
+     and on the CPU, flags equal, B, D and A launched;
   4. replay  -- tests/golden/golden_sequence.npz (60 frames, 752x480)
      through `make_tracker(..., device="cuda")` at 100,000 particles,
      min_blob_area=8, pf_max_retries=8; every frame must update, ATE
@@ -1161,8 +1174,10 @@ def launch_times_us(fn, reps: int = 20, attempts: int = 3):
 
 def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
     """The build report of every kernel (E, F, G and H must use no local
-    memory, B none beyond the math library's 32-byte sincosf frame; the
-    registers of B and E at the main path's M = 5) and the device time of
+    memory, B none beyond the math library's 32-byte sincosf frame, both
+    checked on the forms the tracker runs by default, K = 16 and M <= 8,
+    and reported on the wide forms; the registers of B and E at the main
+    path's M = 5) and the device time of
     each launch of kernels A, B, D, E and H on their main-path inputs (H:
     one launch over the 4 shards of B's bank, every block reaching every
     shard, at the positions of the stratified ancestors of B's weights)."""
@@ -1175,6 +1190,8 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
     for src, name, regs, frame, stores, loads in ptxas_report(cuda_lib):
         print(f"[report] ptxas {src} {name}: {regs} registers, {frame} bytes stack frame, "
               f"{stores} bytes spill stores, {loads} bytes spill loads")
+        if ", (int)0" in name:  # a wide form of B or E (K at run time): reported
+            continue
         if src in ("resample_decode.cu", "monotone_gather.cu", "pf_weight.cu", "ring_gather.cu"):
             assert frame == stores == loads == 0, f"{src} {name} uses local memory"
         if src == "pf_step.cu":
@@ -1201,6 +1218,206 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
     print(f"[report] {card_line()}: launches of kernels A (detect_stats), D (gn_refine), B "
           f"(pf_step, weights only and with pairs), E (pf_weight) and H (ring_gather, {p} "
           f"shards) at N={N_PARTICLES} (us): {times}")
+
+
+# [shapes]: the shape grid of tests/test_torch_kernels_cuda.py (SHAPE_*,
+# every bucket of kernels B, E, D and A beyond the main path's K = 16, M = 5,
+# 12 sweeps and top-k 16) with that file's input generators
+SHAPE_LANES = 20_000
+WIDE = dict(m=16, k=64, sweeps=20, topk=100)  # the wide shape timed at N_PARTICLES
+TEN_MARKERS = ROOT / "configs" / "two_uav_marker_positions.yaml"
+TEN_FRAMES = 8
+TWIN_FRAMES = 6
+
+
+def exact_err(got, want) -> float:
+    """Largest |got - want| over pairs of tensors; NaN against NaN counts as
+    equal, NaN against a number as inf."""
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        d = (g - w).abs().masked_fill((g == w) | (g.isnan() & w.isnan()), 0.0)
+        err = max(err, float(d.nan_to_num(nan=float("inf")).max()) if d.numel() else 0.0)
+    return err
+
+
+def shape_phase(device, d, card, counted) -> dict:
+    """[shapes]: kernels B (both variants), E, D and A against their plain
+    twins on the card across the shape grid (every K with M in {3, 9, 32},
+    every M with K in {12, 64}, the full K x M grid for E; D at every M; A
+    at every sweep count and top-k on two frames), each with max_abs_err 0;
+    the wide shape's device time beside its bound; tests/
+    test_torch_parallel_multi.py's two-target scene at its configuration
+    (max_detections=12) on the card and on the CPU, flags equal on every
+    (frame, target); and configs/two_uav_marker_positions.yaml as one object
+    of ten markers on a synthetic orbit: frame 0 from a fresh state (the
+    init) and frames 1-7 from a state seeded at frame 0's pose (the track
+    branch: B, D and A at M = 10), on the card and on the CPU, flags equal."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.io import load_marker_positions, make_orbit_sequence
+    from pf_monocular_pose_estimator_tpu_torch.io.markers import load_camera_calibration
+    from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
+    from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel as rk
+    from pf_monocular_pose_estimator_tpu_torch.pf import step_kernel as sk
+    from pf_monocular_pose_estimator_tpu_torch.pf import weight_kernel as wk
+    from pf_monocular_pose_estimator_tpu_torch.tracker import (TargetState, create_states,
+                                                               make_multi_tracker, make_tracker)
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+    from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
+
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tests"))
+    threads = torch.get_num_threads()  # a test module sets its own
+    import test_torch_kernels_cuda as grid
+    from test_torch_parallel_multi import CONFIG as TWIN_CONFIG
+    from test_torch_parallel_multi import N as TWIN_N
+    from test_torch_parallel_multi import _scene
+    torch.set_num_threads(threads)
+    shape_m, shape_k = grid.SHAPE_M, grid.SHAPE_K
+
+    out = {"card": card}
+    # B and E over the grid
+    pairs = sorted({(m, k) for k in shape_k for m in (3, 9, 32)}
+                   | {(m, k) for m in shape_m for k in (12, 64)})
+    keys = (5, 6, 7, 8)
+    err_pf = 0.0
+    for m in shape_m:
+        for k in shape_k:
+            bank, prm = grid._card_params(device, *grid.shape_lanes(m, k, SHAPE_LANES))
+            wprm = prm[76:].contiguous()
+            err_pf = max(err_pf, exact_err(wk.weight(bank, wprm, m, k),
+                                           wk.weight_plain(bank, wprm, m, k)))
+            if (m, k) in pairs:
+                want = sk.pf_step_plain(bank, prm, keys, m, k, want_pairs=True)
+                err_pf = max(err_pf, exact_err(sk.pf_step(bank, prm, keys, m, k, want_pairs=True),
+                                               want))
+                err_pf = max(err_pf, exact_err(sk.pf_step(bank, prm, keys, m, k), want[:2]))
+    torch.cuda.synchronize()
+    print(f"[shapes] B (both variants) at {len(pairs)} (M, K) pairs and E at all "
+          f"{len(shape_m) * len(shape_k)}, M in {shape_m}, K in {shape_k}, {SHAPE_LANES} lanes: "
+          f"max abs err {err_pf}")
+    assert err_pf == 0.0, f"[shapes] B / E differ from their plain twins by {err_pf}"
+    # D at every M
+    err_d = 0.0
+    for m in shape_m:
+        args = grid._gn_batch(m, 2 * m + 1, device)[0]
+        err_d = max(err_d, exact_err(rk.gn_refine(*args, 25, 1e-4),
+                                     rk.gn_refine_plain(*args, 25, 1e-4)))
+    print(f"[shapes] D at M in {shape_m} (2M + 1 hypotheses, one frozen, one diverging): "
+          f"max abs err {err_d}")
+    assert err_d == 0.0, f"[shapes] D differs from its plain twin by {err_d}"
+    # A at every sweep count and top-k, on the golden crop and a frame of many blobs
+    crop, prm_c = crop_inputs(d, device)
+    rng = np.random.default_rng(11)
+    frames_a = {"golden crop 192x256": (crop, prm_c), "blobs 192x256": (
+        grid._large_blob_image(rng, 192, 256).to(device),
+        dk.make_params([0.0, 0.0, 256.0, 192.0], 240.0, 8.0, 160.0, 0.6, device))}
+    sweep_grid, topk_grid = grid.SHAPE_SWEEPS + (32,), grid.SHAPE_TOPK + (1, 128)
+    err_a = 0.0
+    for name, (img, prm) in frames_a.items():
+        for sweeps in sweep_grid:
+            for topk in topk_grid:
+                got = dk.detect_stats(img, prm, 5, True, sweeps, topk)
+                want = dk.detect_stats_plain(img, prm, 5, True, sweeps, topk)
+                err_a = max(err_a, exact_err((got[0], got[1], got[2]),
+                                             (want[0], want[1], want[2])))
+    print(f"[shapes] A at sweeps {sweep_grid} x top-k {topk_grid} on {list(frames_a)}: "
+          f"max abs err {err_a}")
+    assert err_a == 0.0, f"[shapes] A differs from its plain twin by {err_a}"
+    out["max_abs_err"] = dict(pf=err_pf, gn=err_d, detect=err_a)
+
+    # the wide shape's times beside its bounds
+    m, k, n = WIDE["m"], WIDE["k"], N_PARTICLES
+    bank, prm = grid._card_params(device, *grid.shape_lanes(m, k, n))
+    wprm = prm[76:].contiguous()
+    args_d = grid._gn_batch(m, 2 * m + 1, device)[0]
+    blobs, prm_blobs = frames_a["blobs 192x256"]
+    sw, tk = WIDE["sweeps"], WIDE["topk"]
+    px = blobs.numel()
+    shapes = {"pf_step": f"M={m}, K={k}, N={n}", "pf_weight": f"M={m}, K={k}, N={n}",
+              "gn_refine": f"M={m}, {2 * m + 1} hypotheses",
+              "detect_stats": f"192x256 of many blobs, {WIDE['sweeps']} sweeps, "
+                              f"top-{WIDE['topk']}"}
+    wide = {
+        "pf_step": (lambda: sk.pf_step(bank, prm, keys, m, k),
+                    bound(n * (64 + 64 + 4), n * (PROPAGATE_OPS + weight_ops(m, k)))),
+        "pf_weight": (lambda: wk.weight(bank, wprm, m, k),
+                      bound(n * (48 + 4 + 8 * m + 4), n * weight_ops(m, k))),
+        "gn_refine": (lambda: rk.gn_refine(*args_d, 25, 1e-4),
+                      bound(4 * sum(a.numel() for a in args_d) + 4 * (2 * m + 1) * 60, 0)),
+        "detect_stats": (lambda: dk.detect_stats(blobs, prm_blobs, 5, True, sw, tk),
+                         bound(4 * px + 4 * px * (1 + dk.N_MAPS) + 8 * tk,
+                               (26 + sw * 9 + 20) * px)),
+    }
+    out["wide"] = {}
+    for name, (fn, (b_ms, b_by)) in wide.items():
+        row = dict(device_ms=device_time_ms(fn), ms=time_ms(fn), bound_ms=b_ms, bound_by=b_by)
+        out["wide"][name] = row
+        print(f"[shapes] {card}: {name} ({shapes[name]}): {row['device_ms'] * 1e3:.2f} us on "
+              f"the card alone, {row['ms'] * 1e3:.1f} us by events, bound {b_ms * 1e3:.2f} us "
+              f"({b_by})")
+
+    # the CPU twin's two-target scene at its configuration, card against CPU
+    cam_s, markers_s, masks_s, frames_s = _scene(TWIN_FRAMES)
+
+    def twin(dev):
+        step = make_multi_tracker(cam_s, markers_s, masks_s, TrackerConfig(**TWIN_CONFIG),
+                                  device=dev)
+        states = create_states(2, TWIN_N, 0, (160, 96), device=dev)
+        flags = []
+        for i, frame in enumerate(frames_s):
+            states, res = step(states, frame.to(dev), 0.02 * (i + 1))
+            flags.append(res.fail_flag.cpu().numpy())
+        return SimpleNamespace(flags=np.stack(flags))
+
+    card_twin = counted("shapes-twin", twin, device)
+    cpu_twin = twin("cpu")
+    differ = np.argwhere(card_twin.flags != cpu_twin.flags).tolist()
+    print(f"[shapes] two-target scene, max_detections={TWIN_CONFIG['max_detections']}, "
+          f"{TWIN_FRAMES} frames: card flags {card_twin.flags.tolist()}, CPU equal: {not differ}")
+    assert not differ, f"[shapes] two-target flags differ at (frame, target) {differ}"
+    assert card_twin.launches["pf_step"] > 0, "[shapes] two-target scene never launched B"
+
+    # ten markers as one object
+    markers10 = torch.as_tensor(load_marker_positions(str(TEN_MARKERS))[0])
+    assert markers10.shape == (10, 4)
+    cam10 = load_camera_calibration(TWO_UAV_EXPERIMENT["camera"], device="cpu")
+    seq = make_orbit_sequence(cam10, markers10, num_frames=TEN_FRAMES, device="cpu")
+    n10 = 4000
+    config10 = TrackerConfig(**dict(MAIN, n_particles=n10))
+
+    def ten(dev):
+        step = make_tracker(cam10, markers10, torch.ones(10, dtype=torch.bool), config10,
+                            device=dev)
+        fresh = TargetState.create(n10, prng_key(0), device=dev)
+        _, res0 = step(fresh, seq.frames[0].to(dev), float(seq.times[0]))
+        p0 = seq.poses[0].to(dev)
+        state = fresh.replace(
+            current_pose=p0.clone(), previous_pose=p0.clone(), predicted_pose=p0.clone(),
+            bank=p0.reshape(16, 1).repeat(1, n10), resampled=p0.reshape(16, 1).repeat(1, n10),
+            it_since_initialized=torch.tensor(2, dtype=torch.int32, device=dev),
+            time_current=seq.times[0].to(dev), time_previous=seq.times[0].to(dev) - 0.02)
+        flags, errs = [int(res0.fail_flag)], []
+        for i in range(1, TEN_FRAMES):
+            state, res = step(state, seq.frames[i].to(dev), float(seq.times[i]))
+            flags.append(int(res.fail_flag))
+            errs.append(float(torch.linalg.norm(res.pose[:3, 3].cpu() - seq.poses[i][:3, 3])))
+        return SimpleNamespace(flags=flags, errs=errs)
+
+    card_ten = counted("shapes-ten", ten, device)
+    cpu_ten = ten("cpu")
+    print(f"[shapes] ten markers as one object, {TEN_FRAMES} frames at {n10} particles: card "
+          f"flags {card_ten.flags}, CPU {cpu_ten.flags}; card translation errors (mm) "
+          f"{[round(e * 1e3, 3) for e in card_ten.errs]}")
+    assert card_ten.flags == cpu_ten.flags, "[shapes] ten-marker flags differ from the CPU's"
+    for name in ("pf_step", "gn_refine", "detect_stats"):
+        assert card_ten.launches[name] > 0, f"[shapes] ten markers never launched {name}"
+    out.update(twin=dict(flags=card_twin.flags.tolist(), launches=card_twin.launches),
+               ten_markers=dict(flags=card_ten.flags, errors_m=card_ten.errs,
+                                launches=card_ten.launches))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[shapes] the phase took {out['seconds']:.1f} s")
+    return out
 
 
 def faulted_init_on_card(device, cam, markers) -> list:
@@ -1976,6 +2193,9 @@ def main() -> int:
               f"{run.syncs_per_frame:.2f} device->host syncs per frame")
         return run
 
+    # [shapes]: the kernels beyond the main path's shapes, the twin scene, ten markers
+    shapes = shape_phase(device, d, card, counted)
+
     # 4. replay through the main path, counters from zero; 5. a warm second replay
     main_run = counted_replay("replay")
     for name in ("threshold_blur", "detect_stats", "pf_step", "gn_refine"):
@@ -2084,7 +2304,7 @@ def main() -> int:
                         default_ring_clipped=int(default_run.clipped[-1])),
         "sharded_large": dict(summary(large_run, large_warm), n_particles=N_LARGE,
                               frames=SHORT_FRAMES, clipped=int(large_run.clipped[-1])),
-        "ring": ring, **new_paths}))
+        "ring": ring, "shapes": shapes, **new_paths}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,6 +25,12 @@
 //     the sweeps run in.
 // Out-of-frame neighbours never match (label 0 here; the Pallas rolls bring
 // in biased labels that never compare equal, which is the same thing).
+// Those halos are for at most 12 sweeps, the tracker's default.  13 to 32
+// sweeps run the wide shapes, whose halos are sized the same way for 32:
+// labels a 32 px halo around a 32x32 tile (512 threads), stats a 64 px halo
+// around a 16x16 tile (512 threads, 223 KB of shared memory), both in
+// dynamic shared memory, the stats' bbox sweeps reading their values from
+// shared memory instead of registers.
 //
 // Both sweep loops work on lists.  Only foreground pixels change; they are
 // listed once, the sweeping threads (one listed pixel each while the list
@@ -40,7 +46,7 @@
 // __vminu4 gated by one bit.  Background pixels skip the windowed sums,
 // whose result there is known (count 1, every moment +0).
 //
-// The top-k is exact in two stages.  The ranking (score descending, flat
+// The top-k (1 to 128) is exact in two stages.  The ranking (score descending, flat
 // index ascending) is a strict total order, encoded as one 64-bit key
 // (float bits of the score << 32 | 0xFFFFFFFF - index; scores are >= 0, so
 // their bits sort as unsigned integers), and the global top-k lies in the
@@ -65,7 +71,13 @@ constexpr int kLabHalo = 12;
 constexpr int kLabSpan = kLabTile + 2 * kLabHalo;  // 56
 constexpr int kLabThreads = 256;
 constexpr int kStHalo = 24;                        // 2 x the largest sweep count
-constexpr int kMaxTopk = 64;
+constexpr int kMaxSweeps = kLabHalo;               // the default shapes' sweeps
+constexpr int kLabWideHalo = 32;                   // the wide shapes: up to 32 sweeps
+constexpr int kLabWideThreads = 512;
+constexpr int kStWideHalo = 2 * kLabWideHalo;
+constexpr int kWideSweeps = kLabWideHalo;
+constexpr int kMaxTopk = 64;   // the merge's list of the default shapes
+constexpr int kWideTopk = 128;  // and the largest top-k
 constexpr int kMergeThreads = 256;
 constexpr int kMergeHeld = 8;  // keys a lane of the merge holds in registers
 
@@ -181,36 +193,47 @@ __device__ __forceinline__ int label_sweeps(int tid, int nsw, int n, const unsig
   return s;
 }
 
+// A label launch's shape: a 32x32 tile in a span with a `Halo` px halo
+// (exact for up to Halo sweeps), NT threads.
+template <int Halo, int NT>
+struct LabShape {
+  static constexpr int kSpan = kLabTile + 2 * Halo;
+  static constexpr int P = kSpan + 2;  // the span with a ring of zeros
+  static constexpr int S2 = kSpan * kSpan;
+  static constexpr int kLoad = (S2 + NT - 1) / NT;
+  static constexpr int kSmem = 2 * P * P * 4 + S2 * 2;  // both label buffers, the list
+  static_assert(kLoad <= 32, "a thread's foreground pixels are bits of one word");
+};
+
 // 3x3 max-label propagation, exactly `sweeps` sweeps, labels = 1-based flat
 // index of the pixel, 0 on background.  Only foreground pixels change: they
 // are listed and swept (label_sweeps) in a span with a ring of zeros, so no
 // neighbour needs a bounds check.
-__global__ void __launch_bounds__(kLabThreads)
-    label_kernel(const float* __restrict__ blurred, int h, int w, int sweeps,
-                 int* __restrict__ lab_out) {
-  constexpr int P = kLabSpan + 2, S2 = kLabSpan * kLabSpan;
-  constexpr int kLoad = (S2 + kLabThreads - 1) / kLabThreads;
-  __shared__ int lab[2][P * P];
-  __shared__ unsigned short list[S2];
-  __shared__ int s_n, s_fin;
-  const int oy = blockIdx.y * kLabTile - kLabHalo;
-  const int ox = blockIdx.x * kLabTile - kLabHalo;
+template <int Halo, int NT, int P = LabShape<Halo, NT>::P>
+__device__ __forceinline__ void label_tile(const float* __restrict__ blurred, int h, int w,
+                                           int sweeps, int* __restrict__ lab_out,
+                                           int (*lab)[P * P], unsigned short* list, int& s_n,
+                                           int& s_fin) {
+  using Sh = LabShape<Halo, NT>;
+  constexpr int S2 = Sh::S2, kSpan = Sh::kSpan, kLoad = Sh::kLoad;
+  const int oy = blockIdx.y * kLabTile - Halo;
+  const int ox = blockIdx.x * kLabTile - Halo;
   const int tid = threadIdx.x, lane = tid & 31;
   if (tid == 0) s_n = s_fin = 0;
-  for (int i = tid; i < P * P; i += kLabThreads) lab[0][i] = lab[1][i] = 0;
-  unsigned fg = 0;  // bit r: pixel tid + r * kLabThreads is foreground
+  for (int i = tid; i < P * P; i += NT) lab[0][i] = lab[1][i] = 0;
+  unsigned fg = 0;  // bit r: pixel tid + r * NT is foreground
 #pragma unroll
   for (int r = 0; r < kLoad; ++r) {
-    const int i = tid + r * kLabThreads;
-    const int gy = oy + i / kLabSpan, gx = ox + i % kLabSpan;
+    const int i = tid + r * NT;
+    const int gy = oy + i / kSpan, gx = ox + i % kSpan;
     if (i < S2 && gy >= 0 && gy < h && gx >= 0 && gx < w && blurred[gy * w + gx] > 1e-3f)
       fg |= 1u << r;
   }
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < kLoad; ++r) {
-    const int i = tid + r * kLabThreads;
-    const int ly = i / kLabSpan, lx = i % kLabSpan;
+    const int i = tid + r * NT;
+    const int ly = i / kSpan, lx = i % kSpan;
     const int pi = (ly + 1) * P + lx + 1;
     const bool f = (fg >> r) & 1u;
     if (f) lab[0][pi] = lab[1][pi] = (oy + ly) * w + ox + lx + 1;
@@ -223,32 +246,63 @@ __global__ void __launch_bounds__(kLabThreads)
   __syncthreads();
   const int n = s_n;
   if (n > 0) {
-    const int nsw = sweep_threads(n, kLabThreads);
+    const int nsw = sweep_threads(n, NT);
     int done = 0;
     if (tid < nsw)
-      done = n <= kLabThreads ? label_sweeps<1, P>(tid, nsw, n, list, lab, sweeps)
-                              : label_sweeps<kLoad, P>(tid, nsw, n, list, lab, sweeps);
+      done = n <= NT ? label_sweeps<1, P>(tid, nsw, n, list, lab, sweeps)
+                     : label_sweeps<kLoad, P>(tid, nsw, n, list, lab, sweeps);
     if (tid == 0) s_fin = done & 1;
   }
   __syncthreads();
   const int fin = s_fin;
-  for (int i = tid; i < kLabTile * kLabTile; i += kLabThreads) {
+  for (int i = tid; i < kLabTile * kLabTile; i += NT) {
     const int ty = i / kLabTile, tx = i % kLabTile;
     const int gy = blockIdx.y * kLabTile + ty, gx = blockIdx.x * kLabTile + tx;
     if (gy < h && gx < w)
-      lab_out[gy * w + gx] = lab[fin][(kLabHalo + ty + 1) * P + kLabHalo + tx + 1];
+      lab_out[gy * w + gx] = lab[fin][(Halo + ty + 1) * P + Halo + tx + 1];
   }
 }
 
+// Up to 12 sweeps: static shared memory.
+__global__ void __launch_bounds__(kLabThreads)
+    label_kernel(const float* __restrict__ blurred, int h, int w, int sweeps,
+                 int* __restrict__ lab_out) {
+  using Sh = LabShape<kLabHalo, kLabThreads>;
+  static_assert(Sh::kSpan == kLabSpan, "label span");
+  __shared__ int lab[2][Sh::P * Sh::P];
+  __shared__ unsigned short list[Sh::S2];
+  __shared__ int s_n, s_fin;
+  label_tile<kLabHalo, kLabThreads>(blurred, h, w, sweeps, lab_out, lab, list, s_n, s_fin);
+}
+
+// 13 to 32 sweeps: the same in dynamic shared memory.
+__global__ void __launch_bounds__(kLabWideThreads)
+    label_wide_kernel(const float* __restrict__ blurred, int h, int w, int sweeps,
+                      int* __restrict__ lab_out) {
+  using Sh = LabShape<kLabWideHalo, kLabWideThreads>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto lab = reinterpret_cast<int (*)[Sh::P * Sh::P]>(smem_raw);
+  auto list = reinterpret_cast<unsigned short*>(smem_raw + 2 * Sh::P * Sh::P * 4);
+  __shared__ int s_n, s_fin;
+  label_tile<kLabWideHalo, kLabWideThreads>(blurred, h, w, sweeps, lab_out, lab, list, s_n,
+                                            s_fin);
+}
+
 // The stats launch's shape: an interior tile of T x T pixels in a span of
-// (T + 48)^2.  T = 24 measured faster on the H100 than 16 (more redundant
-// span loads) and 32 (a longer chain of barriers in each block, on fewer
-// SMs): PERF.md, kernel A.
-struct StatsShape {
-  static constexpr int T = 24;
-  static constexpr int kSpan = T + 2 * kStHalo;
+// (T + 2 Halo)^2, exact for up to Halo / 2 sweeps.  The default shape
+// (StatsShape, up to 12 sweeps): T = 24 measured faster on the H100 than 16
+// (more redundant span loads) and 32 (a longer chain of barriers in each
+// block, on fewer SMs): PERF.md, kernel A.  The wide shape (up to 32
+// sweeps): T = 16, the largest tile whose span fits a block's shared memory;
+// its bbox sweeps keep their values in shared memory (kRegSweeps false).
+template <int T_, int Halo_, int NT_, bool RegSweeps_>
+struct StatsShapeT {
+  static constexpr int T = T_;
+  static constexpr int kHalo = Halo_;
+  static constexpr bool kRegSweeps = RegSweeps_;
+  static constexpr int kSpan = T + 2 * kHalo;
   static constexpr int kSpan2 = kSpan * kSpan;
-  static constexpr int kThreads = T * T >= 512 ? 512 : 256;
+  static constexpr int kThreads = NT_;
   static constexpr int kPix = (T * T + kThreads - 1) / kThreads;  // interior pixels a thread
   static constexpr int kOwn = (kSpan2 + kThreads - 1) / kThreads;  // listed pixels a thread
   // shared memory: labels (then the second sweep buffer, then the roots'
@@ -257,7 +311,11 @@ struct StatsShape {
   static_assert(kSpan <= 254, "packed extrema need a span of at most 254 px");
   static_assert(T * T % 32 == 0 && kSpan2 % 2 == 0, "tile shape");
   static_assert(T * T * 8 <= kSpan2 * 4, "the roots' keys must fit the label buffer");
+  static_assert(kSmem <= 232448 - 64, "a block's shared memory");
+  static_assert(T * T >= kWideTopk, "a tile fills its top-k from its own pixels");
 };
+using StatsShape = StatsShapeT<24, kStHalo, 512, true>;
+using StatsWideShape = StatsShapeT<16, kStWideHalo, 512, false>;
 
 // shifted[y, x] = src[y - dy, x - dx], in the reference's direction order
 __device__ __forceinline__ int dir_dy(int d) {
@@ -312,17 +370,49 @@ __device__ __forceinline__ void bbox_sweeps(int tid, int nsw, int nlist,
   }
 }
 
+// bbox_sweeps with every value read from the buffers instead of registers:
+// a listed pixel's own word in the buffer a step reads is the value the
+// register form holds, so both give the same words.
+template <int S>
+__device__ __forceinline__ void bbox_sweeps_shared(int tid, int nsw, int nlist,
+                                                   const unsigned short* list,
+                                                   const unsigned char* nbr, unsigned* buf_a,
+                                                   unsigned* buf_b, int reach) {
+  for (int s = 0; s < reach; ++s) {
+    bool changed = false;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      const unsigned* cur = (d & 1) ? buf_b : buf_a;
+      unsigned* nxt = (d & 1) ? buf_a : buf_b;
+      const int off = -(dir_dy(d) * S + dir_dx(d));
+      for (int k = tid; k < nlist; k += nsw) {
+        const int i = list[k];
+        unsigned v = cur[i];
+        if ((nbr[i] >> d) & 1u) {
+          const unsigned nv = __vminu4(v, cur[i + off]);
+          changed = changed || nv != v;
+          v = nv;
+        }
+        nxt[i] = v;
+      }
+      if (d < 7) bar1(nsw);
+    }
+    if (!bar1_any(changed, nsw)) break;
+  }
+}
+
 // Windowed same-label sums (dy in [-reach, 0], dx in [-reach, reach]), the
 // bbox extrema by `reach` sweeps of same-label min/max propagation in the
 // reference's direction order, and the tile's top-k keys.  maps: 10 planes
 // of (h, w) in the order cnt, sx, sy, xmin, xmax, ymin, ymax, sxx, syy, sxy;
 // tile_keys: topk keys per tile, best first.
-__global__ void __launch_bounds__(StatsShape::kThreads)
+template <class Sh>
+__global__ void __launch_bounds__(Sh::kThreads)
     stats_kernel(const int* __restrict__ lab, const float* __restrict__ prm, int h, int w,
                  int reach, int topk, float* __restrict__ maps,
                  unsigned long long* __restrict__ tile_keys) {
-  using Sh = StatsShape;
   constexpr int T = Sh::T, S = Sh::kSpan, S2 = Sh::kSpan2, NT = Sh::kThreads;
+  constexpr int H = Sh::kHalo;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the labels' space holds the second sweep buffer after the sums, the
   // roots' keys after the sweeps
@@ -336,8 +426,8 @@ __global__ void __launch_bounds__(StatsShape::kThreads)
   __shared__ int s_nlist, s_nroots;
 
   const int tid = threadIdx.x, lane = tid & 31;
-  const int oy = blockIdx.y * T - kStHalo;
-  const int ox = blockIdx.x * T - kStHalo;
+  const int oy = blockIdx.y * T - H;
+  const int ox = blockIdx.x * T - H;
   if (tid == 0) {
     s_nlist = 0;
     s_nroots = 0;
@@ -393,7 +483,7 @@ __global__ void __launch_bounds__(StatsShape::kThreads)
   for (int r = 0; r < Sh::kPix; ++r) {
     const int p = tid + r * NT;
     const int ty = p / T, tx = p % T;
-    const int cy = kStHalo + ty, cxl = kStHalo + tx;
+    const int cy = H + ty, cxl = H + tx;
     me[r] = p < T * T ? labb[cy * S + cxl] : 0;
     // Every term and partial sum is an integer below 2^24, so the float sums
     // of the plain version are exact in any order: integer sums equal them
@@ -434,7 +524,9 @@ __global__ void __launch_bounds__(StatsShape::kThreads)
   if (nlist > 0) {
     const int nsw = sweep_threads(nlist, NT);
     if (tid < nsw) {
-      if (nlist <= NT)
+      if constexpr (!Sh::kRegSweeps)
+        bbox_sweeps_shared<S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, reach);
+      else if (nlist <= NT)
         bbox_sweeps<1, S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, reach);
       else
         bbox_sweeps<Sh::kOwn, S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, reach);
@@ -454,7 +546,7 @@ __global__ void __launch_bounds__(StatsShape::kThreads)
     unsigned char k = 0;
     if (gy < h && gx < w) {
       const int o = gy * w + gx;
-      const unsigned word = buf_a[(kStHalo + ty) * S + kStHalo + tx];
+      const unsigned word = buf_a[(H + ty) * S + H + tx];
       const bool fg = me[r] > 0;
       maps[0 * hw + o] = cnt[r];
       maps[1 * hw + o] = sx[r];
@@ -550,13 +642,15 @@ __device__ __forceinline__ void warp_topk(const unsigned long long* keys, int n,
   }
 }
 
-// The global top-k from the tiles' keys: each of 8 warps takes the top-k of
-// its share, then warp 0 merges the 8 descending lists by their heads.
+// The global top-k (topk <= Cap) from the tiles' keys: each of 8 warps takes
+// the top-k of its share, then warp 0 merges the 8 descending lists by their
+// heads.
+template <int Cap>
 __global__ void __launch_bounds__(kMergeThreads)
     topk_merge_kernel(const unsigned long long* __restrict__ keys, int n, int topk,
                       int* __restrict__ out) {
   constexpr int kWarps = kMergeThreads / 32;
-  __shared__ unsigned long long lists[kWarps * kMaxTopk];
+  __shared__ unsigned long long lists[kWarps * Cap];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int share = (n + kWarps - 1) / kWarps;
   const int lo = min(n, warp * share), hi = min(n, lo + share);
@@ -574,25 +668,34 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
+template <class Sh>
 int n_tiles(int h, int w) {
-  constexpr int T = StatsShape::T;
+  constexpr int T = Sh::T;
   return ((w + T - 1) / T) * ((h + T - 1) / T);
 }
 
-cudaError_t launch_stats(const int* lab, const float* prm, int h, int w, int sweeps, int topk,
-                         float* maps, unsigned long long* tile_keys, cudaStream_t st) {
-  using Sh = StatsShape;
-  static bool ready = false;
+// Launch `kernel` with `smem` bytes of dynamic shared memory, raising its
+// limit once first.
+template <class Kernel, class... Args>
+cudaError_t launch_dynamic(Kernel kernel, bool& ready, int smem, dim3 grid, int threads,
+                           cudaStream_t st, Args... args) {
   if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     ready = true;
   }
-  const dim3 grid((w + Sh::T - 1) / Sh::T, (h + Sh::T - 1) / Sh::T);
-  stats_kernel<<<grid, Sh::kThreads, Sh::kSmem, st>>>(lab, prm, h, w, sweeps, topk, maps,
-                                                      tile_keys);
+  kernel<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
+}
+
+template <class Sh>
+cudaError_t launch_stats(const int* lab, const float* prm, int h, int w, int sweeps, int topk,
+                         float* maps, unsigned long long* tile_keys, cudaStream_t st) {
+  static bool ready = false;
+  const dim3 grid((w + Sh::T - 1) / Sh::T, (h + Sh::T - 1) / Sh::T);
+  return launch_dynamic(stats_kernel<Sh>, ready, Sh::kSmem, grid, Sh::kThreads, st, lab, prm, h,
+                        w, sweeps, topk, maps, tile_keys);
 }
 
 }  // namespace
@@ -609,28 +712,47 @@ int pfmpe_threshold_blur(const float* img, const float* prm, int ntaps, int h, i
   return (int)cudaGetLastError();
 }
 
+// The stats tile of a sweep count (tile_keys holds n_tiles * topk keys).
+int pfmpe_detect_stats_tile(int sweeps) {
+  return sweeps <= kMaxSweeps ? StatsShape::T : StatsWideShape::T;
+}
+
 // blurred: (h, w) scratch; lab: (h, w) int32; maps: (10, h, w);
-// tile_keys: (tiles * topk,) scratch, tiles = ceil(h / 24) * ceil(w / 24);
-// topk_out: (topk,)
+// tile_keys: (tiles * topk,) scratch, tiles = ceil(h / T) * ceil(w / T) with
+// T = pfmpe_detect_stats_tile(sweeps); topk_out: (topk,).  0 <= sweeps <= 32,
+// 1 <= topk <= min(128, h * w).
 int pfmpe_detect_stats(const float* img, const float* prm, int ntaps, int h, int w, int active,
                        int sweeps, int topk, float* blurred, int* lab, float* maps,
                        unsigned long long* tile_keys, int* topk_out, void* stream) {
-  if (ntaps < 1 || ntaps > kMaxTaps || sweeps < 0 || sweeps > kLabHalo || topk < 1 ||
-      topk > kMaxTopk || (long long)h * w < topk)
+  if (ntaps < 1 || ntaps > kMaxTaps || sweeps < 0 || sweeps > kWideSweeps || topk < 1 ||
+      topk > kWideTopk || (long long)h * w < topk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool wide = sweeps > kMaxSweeps;
   {
     const dim3 block(kBlurX, kBlurY);
     const dim3 grid((w + kBlurX - 1) / kBlurX, (h + kBlurY - 1) / kBlurY);
     threshold_blur_kernel<<<grid, block, 0, st>>>(img, prm, ntaps, h, w, active, blurred);
   }
-  {
-    const dim3 grid((w + kLabTile - 1) / kLabTile, (h + kLabTile - 1) / kLabTile);
-    label_kernel<<<grid, kLabThreads, 0, st>>>(blurred, h, w, sweeps, lab);
+  const dim3 lab_grid((w + kLabTile - 1) / kLabTile, (h + kLabTile - 1) / kLabTile);
+  cudaError_t e;
+  if (!wide) {
+    label_kernel<<<lab_grid, kLabThreads, 0, st>>>(blurred, h, w, sweeps, lab);
+    e = launch_stats<StatsShape>(lab, prm, h, w, sweeps, topk, maps, tile_keys, st);
+  } else {
+    using L = LabShape<kLabWideHalo, kLabWideThreads>;
+    static bool ready = false;
+    e = launch_dynamic(label_wide_kernel, ready, L::kSmem, lab_grid, kLabWideThreads, st, blurred,
+                       h, w, sweeps, lab);
+    if (e == cudaSuccess)
+      e = launch_stats<StatsWideShape>(lab, prm, h, w, sweeps, topk, maps, tile_keys, st);
   }
-  const cudaError_t e = launch_stats(lab, prm, h, w, sweeps, topk, maps, tile_keys, st);
   if (e != cudaSuccess) return (int)e;
-  topk_merge_kernel<<<1, kMergeThreads, 0, st>>>(tile_keys, n_tiles(h, w) * topk, topk, topk_out);
+  const int n_keys = (wide ? n_tiles<StatsWideShape>(h, w) : n_tiles<StatsShape>(h, w)) * topk;
+  if (topk <= kMaxTopk)
+    topk_merge_kernel<kMaxTopk><<<1, kMergeThreads, 0, st>>>(tile_keys, n_keys, topk, topk_out);
+  else
+    topk_merge_kernel<kWideTopk><<<1, kMergeThreads, 0, st>>>(tile_keys, n_keys, topk, topk_out);
   return (int)cudaGetLastError();
 }
 

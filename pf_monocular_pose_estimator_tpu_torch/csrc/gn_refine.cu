@@ -27,7 +27,11 @@
 //   * M is a template parameter (1..8), so every array is indexed by
 //     constants and lives in registers.  ptxas still reports a 32-byte
 //     stack frame: it is sinf/cosf's reduction of huge arguments (a build
-//     with __sinf/__cosf has none), which the exact results need;
+//     with __sinf/__cosf has none), which the exact results need.  For
+//     9..32 markers one instantiation (M = 0) takes the count at run time:
+//     lane q < M still projects pair q, the staged rows are in shared memory
+//     in both forms, and the pair loops run to the runtime count in the
+//     same order;
 //   * a frozen hypothesis changes nothing more (pose, n_iter and the flag
 //     stay as they are), so its warp leaves the loop: the outputs equal the
 //     full budget's.
@@ -39,7 +43,8 @@
 
 namespace {
 
-constexpr int kMaxM = 8;
+constexpr int kMaxM = 32;   // markers a warp takes (one lane a pair)
+constexpr int kFixedM = 8;  // counts with their own instantiation
 constexpr int kRow = 14;  // a pair's staged row: ju[0..5], jv[0..5], ru, rv
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kDamping = 1e-8f;
@@ -65,14 +70,16 @@ __device__ __forceinline__ void term_offsets(int lane, int& o0, int& o1, int& o2
   }
 }
 
-// This lane's normal-equation sum at pose p; the pairs' rows stay staged.
+// This lane's normal-equation sum at pose p over the m pairs (m = M when
+// M > 0); the pairs' rows stay staged.
 template <int M>
-__device__ __forceinline__ float pair_sums(const float p[16], int lane, float mx, float my,
+__device__ __forceinline__ float pair_sums(const float p[16], int lane, int m, float mx, float my,
                                            float mz, float du, float dv, float mk, float fx,
                                            float fy, float cx, float cy, float* stage, int o0,
                                            int o1, int o2, int o3) {
+  if constexpr (M > 0) m = M;
   __syncwarp();
-  if (lane < M) {
+  if (lane < m) {
     const float pcx = p[0] * mx + p[1] * my + p[2] * mz + p[3];
     const float pcy = p[4] * mx + p[5] * my + p[6] * mz + p[7];
     const float pcz = p[8] * mx + p[9] * my + p[10] * mz + p[11];
@@ -101,7 +108,7 @@ __device__ __forceinline__ float pair_sums(const float p[16], int lane, float mx
   __syncwarp();
   float s = stage[o0] * stage[o1] + stage[o2] * stage[o3];
 #pragma unroll
-  for (int q = 1; q < M; ++q) {
+  for (int q = 1; q < m; ++q) {
     const float* r = stage + q * kRow;
     s = s + (r[o0] * r[o1] + r[o2] * r[o3]);
   }
@@ -239,26 +246,28 @@ __device__ __forceinline__ void exp_rows(const float dt[6], float e[12]) {
 // out_pose: (b, 16); stats: (b, 8) [err0, err, n_iter, max_resid, done,
 // diverged, 0, 0]; amat: (b, 36) final normal matrix (undamped).
 // One block, one warp, a hypothesis (one warp a block measured faster on the
-// H100 than 11 warps in one block: PERF.md, kernel D).
+// H100 than 11 warps in one block: PERF.md, kernel D).  M > 0: M markers;
+// M = 0: m_rt <= kMaxM markers.
 template <int M>
 __global__ void gn_refine_kernel(const float* __restrict__ scal, const float* __restrict__ poses,
                                  const float* __restrict__ mark, const float* __restrict__ du_all,
                                  const float* __restrict__ dv_all,
                                  const float* __restrict__ mask_all, int max_iter,
                                  float tol, float* __restrict__ out_pose,
-                                 float* __restrict__ stats, float* __restrict__ amat) {
-  __shared__ float stage[M * kRow];
+                                 float* __restrict__ stats, float* __restrict__ amat, int m_rt) {
+  __shared__ float stage[(M > 0 ? M : kMaxM) * kRow];
+  const int m = M > 0 ? M : m_rt;
   const int lane = threadIdx.x;
   const int h = blockIdx.x;
   const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
   float mx = 0.0f, my = 0.0f, mz = 0.0f, du = 0.0f, dv = 0.0f, mk = 0.0f;
-  if (lane < M) {
+  if (lane < m) {
     mx = mark[lane];
-    my = mark[M + lane];
-    mz = mark[2 * M + lane];
-    du = du_all[h * M + lane];
-    dv = dv_all[h * M + lane];
-    mk = mask_all[h * M + lane];
+    my = mark[m + lane];
+    mz = mark[2 * m + lane];
+    du = du_all[h * m + lane];
+    dv = dv_all[h * m + lane];
+    mk = mask_all[h * m + lane];
   }
   int o0, o1, o2, o3;
   term_offsets(lane, o0, o1, o2, o3);
@@ -266,11 +275,13 @@ __global__ void gn_refine_kernel(const float* __restrict__ scal, const float* __
   float p[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) p[i] = poses[h * 16 + i];
-  float sum = pair_sums<M>(p, lane, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1, o2, o3);
+  float sum = pair_sums<M>(p, lane, m, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1,
+                     o2, o3);
   const float err0 = __shfl_sync(kFull, sum, 27);
   float done = 0.0f, n_iter = 0.0f;
   for (int it = 0; it < max_iter && !(done > 0.0f); ++it) {
-    sum = pair_sums<M>(p, lane, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1, o2, o3);
+    sum = pair_sums<M>(p, lane, m, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1,
+                       o2, o3);
     float a[6][6], b[6], s[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
@@ -312,10 +323,11 @@ __global__ void gn_refine_kernel(const float* __restrict__ scal, const float* __
     n_iter = n_iter + 1.0f;
     done = step <= tol ? 1.0f : 0.0f;
   }
-  sum = pair_sums<M>(p, lane, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1, o2, o3);
+  sum = pair_sums<M>(p, lane, m, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1,
+                     o2, o3);
   float max_resid = 0.0f;
 #pragma unroll
-  for (int q = 0; q < M; ++q) {
+  for (int q = 0; q < m; ++q) {
     const float ru = stage[q * kRow + 12], rv = stage[q * kRow + 13];
     const float r = sqrtf(ru * ru + rv * rv);
     max_resid = q == 0 ? r : fmaxf(max_resid, r);
@@ -345,10 +357,10 @@ __global__ void gn_refine_kernel(const float* __restrict__ scal, const float* __
 
 template <int M>
 int launch(const float* scal, const float* poses, const float* mark, const float* du,
-           const float* dv, const float* mask, int nb, int max_iter, float tol, float* out_pose,
-           float* stats, float* amat, cudaStream_t st) {
+           const float* dv, const float* mask, int nb, int m, int max_iter, float tol,
+           float* out_pose, float* stats, float* amat, cudaStream_t st) {
   gn_refine_kernel<M><<<nb, 32, 0, st>>>(scal, poses, mark, du, dv, mask, max_iter, tol, out_pose,
-                                         stats, amat);
+                                         stats, amat, m);
   return (int)cudaGetLastError();
 }
 
@@ -360,9 +372,10 @@ extern "C" int pfmpe_gn_refine(const float* scal, const float* poses, const floa
                                float* amat, void* stream) {
   if (m < 1 || m > kMaxM || nb < 1) return (int)cudaErrorInvalidValue;
   using Launch = int (*)(const float*, const float*, const float*, const float*, const float*,
-                         const float*, int, int, float, float*, float*, float*, cudaStream_t);
-  constexpr Launch kLaunch[kMaxM] = {launch<1>, launch<2>, launch<3>, launch<4>,
-                                     launch<5>, launch<6>, launch<7>, launch<8>};
-  return kLaunch[m - 1](scal, poses, mark, du, dv, mask, nb, max_iter, tol, out_pose, stats, amat,
-                        (cudaStream_t)stream);
+                         const float*, int, int, int, float, float*, float*, float*,
+                         cudaStream_t);
+  constexpr Launch kLaunch[kFixedM + 1] = {launch<0>, launch<1>, launch<2>, launch<3>, launch<4>,
+                                           launch<5>, launch<6>, launch<7>, launch<8>};
+  return kLaunch[m <= kFixedM ? m : 0](scal, poses, mark, du, dv, mask, nb, m, max_iter, tol,
+                                       out_pose, stats, amat, (cudaStream_t)stream);
 }

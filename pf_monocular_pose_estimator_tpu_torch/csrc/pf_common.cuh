@@ -18,6 +18,13 @@
 // that lane forms a pair.  Everything lives in registers: M and K are
 // template parameters and every loop unrolls.  Built with --fmad=false so
 // each product rounds as the reference writes it.
+//
+// Two forms: `greedy_weight<M, K>` for the shapes the tracker runs by
+// default (K = 16, 3 <= M <= 8), and `greedy_weight_wide<MC>` for every
+// other 1 <= K <= kMaxK, 1 <= M <= kMaxM: M rounded up to a bucket MC of
+// {8, 16, 32} (rows m >= M are never read), K a runtime loop bound over the
+// detections staged in shared memory, `used` four words of bits.  Same
+// expressions in the same order, so both equal the plain twin bit for bit.
 
 #pragma once
 
@@ -28,6 +35,11 @@ namespace {
 
 constexpr float kBig = 3.0e37f;
 constexpr int kPfThreads = 128;  // threads a block of kernels B and E (PERF.md: against 256)
+constexpr int kMaxK = 128;       // detections the wide form takes (kernel A's top-k cap)
+constexpr int kMaxM = 32;        // markers the wide form takes
+
+// the marker bucket of the wide form
+__host__ __device__ constexpr int marker_bucket(int m) { return m <= 8 ? 8 : m <= 16 ? 16 : 32; }
 
 __host__ __device__ constexpr int n_weight_params(int m, int k) { return 8 + 4 * m + 3 * k + m; }
 
@@ -152,6 +164,109 @@ __device__ __forceinline__ float greedy_weight(const float* rows, const float* w
       if (ok && m == m_sel) {  // retire the matched marker's row
         rmin[m] = kBig;
         rk[m] = 0;
+      }
+    }
+  }
+  if constexpr (WANT_PAIRS) ncorr[lane] = n_pairs;
+  return weight;
+}
+
+// The weight of `greedy_weight` for runtime m <= MC markers and k <= kMaxK
+// detections (wprm laid out for m and k).
+template <int MC, bool WANT_PAIRS>
+__device__ __forceinline__ float greedy_weight_wide(const float* rows, const float* wprm, int m,
+                                                    int k, int lane, int n,
+                                                    int* __restrict__ pairs,
+                                                    int* __restrict__ ncorr) {
+  const float* scal = wprm;
+  const float* mark = wprm + 8;
+  const float* dets = mark + 4 * m;
+  const float* downg = dets + 3 * k;
+  const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
+  const float tol_pf = scal[4], tol_init = scal[5], nms = scal[6];
+  float u[MC], v[MC];
+#pragma unroll
+  for (int mi = 0; mi < MC; ++mi) {
+    u[mi] = v[mi] = 0.0f;
+    if (mi < m) {
+      const float mx = mark[3 * mi + 0], my = mark[3 * mi + 1], mz = mark[3 * mi + 2];
+      const float xc = rows[0] * mx + rows[1] * my + rows[2] * mz + rows[3];
+      const float yc = rows[4] * mx + rows[5] * my + rows[6] * mz + rows[7];
+      const float zc = rows[8] * mx + rows[9] * my + rows[10] * mz + rows[11];
+      const float safe_z = fabsf(zc) < 1e-12f ? 1e-12f : zc;
+      u[mi] = fx * xc / safe_z + cx;
+      v[mi] = fy * yc / safe_z + cy;
+    }
+  }
+
+  float rmin[MC];
+  int rk[MC];
+#pragma unroll
+  for (int mi = 0; mi < MC; ++mi) {
+    rmin[mi] = kBig;
+    rk[mi] = 0;
+  }
+  bool nan = false;
+#pragma unroll 1
+  for (int kk = 0; kk < k; ++kk) {
+    const float dx = dets[2 * kk], dy = dets[2 * kk + 1], dbig = dets[2 * k + kk];
+#pragma unroll
+    for (int mi = 0; mi < MC; ++mi) {
+      if (mi < m) {
+        const float du = dx - u[mi];
+        const float dv = dy - v[mi];
+        const float cell = du * du + dv * dv + dbig + mark[3 * m + mi];
+        nan |= cell != cell;
+        if (kk == 0 || cell < rmin[mi]) {
+          rmin[mi] = cell;
+          rk[mi] = kk;
+        }
+      }
+    }
+  }
+
+  float weight = 0.0f, nself = 1.0f;
+  bool done = nan;
+  uint32_t used0 = 0u, used1 = 0u, used2 = 0u, used3 = 0u;  // bit k: detection k matched
+  int n_pairs = 0;
+#pragma unroll 1
+  for (int step = 0; step < m; ++step) {
+    // first minimum over the rows m' < m: ties go to the smaller m'
+    float minv = rmin[0];
+    int m_sel = 0, k_sel = rk[0];
+#pragma unroll
+    for (int mi = 1; mi < MC; ++mi) {
+      const bool lt = mi < m && rmin[mi] < minv;
+      minv = lt ? rmin[mi] : minv;
+      m_sel = lt ? mi : m_sel;
+      k_sel = lt ? rk[mi] : k_sel;
+    }
+    const float d = sqrtf(fmaxf(minv, 0.0f));
+    const bool ok = (d <= tol_pf) && !done;
+    done = done || !ok;
+    const float q = (tol_init - d) / tol_init;
+    const float score = nms + q * q;
+    const uint32_t word = k_sel < 32 ? used0 : k_sel < 64 ? used1 : k_sel < 96 ? used2 : used3;
+    const bool occ_hit = ok && ((word >> (k_sel & 31)) & 1u);
+    const float penal_occ = occ_hit ? 3.0f * nself : 0.0f;
+    nself = nself + (occ_hit ? 1.0f : 0.0f);
+    const float penal_down = ok ? downg[m_sel] : 0.0f;
+    weight = weight + (ok ? score : 0.0f) - penal_occ - penal_down;
+    if constexpr (WANT_PAIRS) {
+      pairs[(size_t)(2 * step) * n + lane] = ok ? m_sel : -1;
+      pairs[(size_t)(2 * step + 1) * n + lane] = ok ? k_sel : -1;
+      n_pairs += ok ? 1 : 0;
+    }
+    const uint32_t bit = (ok ? 1u : 0u) << (k_sel & 31);
+    used0 |= k_sel < 32 ? bit : 0u;
+    used1 |= (k_sel >= 32 && k_sel < 64) ? bit : 0u;
+    used2 |= (k_sel >= 64 && k_sel < 96) ? bit : 0u;
+    used3 |= k_sel >= 96 ? bit : 0u;
+#pragma unroll
+    for (int mi = 0; mi < MC; ++mi) {
+      if (ok && mi == m_sel) {  // retire the matched marker's row
+        rmin[mi] = kBig;
+        rk[mi] = 0;
       }
     }
   }

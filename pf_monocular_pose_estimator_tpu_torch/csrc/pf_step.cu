@@ -31,20 +31,30 @@
 // --fmad=false and precise sincosf so every expression rounds as the
 // reference writes it; the 32-byte stack frame ptxas reports is the math
 // library's reduction of huge angles (local memory only on that path).
+//
+// Shapes: the Pallas kernel unrolls over any marker and detection count, so
+// this one takes every 1 <= K <= 128 and 1 <= M <= 32.  K = 16 with
+// 3 <= M <= 8 (the tracker's defaults) keeps its specialised, fully
+// unrolled instantiations; every other shape runs the wide form
+// (pf_common.cuh: M rounded up to a bucket of 8, 16 or 32, K a loop over
+// the detections staged in shared memory), whose greedy work grows as
+// 9 M K + 2 M^2 a particle and bounds it by operations at large M K.
 
 #include "pf_common.cuh"
 
 namespace {
 
 // params: lr[32] | pin[32] | prop[12] | scal[8] | mark[4M] | dets[3K] | downg[M]
+// K > 0: the specialised form (M markers, K detections); K = 0: the wide
+// form, runtime m <= M (the bucket) markers and k <= kMaxK detections.
 template <int M, int K, bool WANT_PAIRS>
 __global__ void __launch_bounds__(kPfThreads) pf_step_kernel(
     const float* __restrict__ bank, const float* __restrict__ prm, int n, uint32_t kr0,
     uint32_t kr1, uint32_t kt0, uint32_t kt1, int lane_offset, int n_total,
     float* __restrict__ out, float* __restrict__ wout, int* __restrict__ pairs,
-    int* __restrict__ ncorr) {
-  __shared__ float sprm[76 + n_weight_params(M, K)];
-  stage(sprm, prm, 76 + n_weight_params(M, K));
+    int* __restrict__ ncorr, int m_rt, int k_rt) {
+  __shared__ float sprm[76 + n_weight_params(M, K > 0 ? K : kMaxK)];
+  stage(sprm, prm, K > 0 ? 76 + n_weight_params(M, K) : 76 + n_weight_params(m_rt, k_rt));
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   const float* lr = sprm;
@@ -132,35 +142,41 @@ __global__ void __launch_bounds__(kPfThreads) pf_step_kernel(
     }
   }
 
-  wout[lane] = greedy_weight<M, K, WANT_PAIRS>(rows, sprm + 76, lane, n, pairs, ncorr);
+  if constexpr (K > 0)
+    wout[lane] = greedy_weight<M, K, WANT_PAIRS>(rows, sprm + 76, lane, n, pairs, ncorr);
+  else
+    wout[lane] = greedy_weight_wide<M, WANT_PAIRS>(rows, sprm + 76, m_rt, k_rt, lane, n, pairs,
+                                                   ncorr);
 }
 
-template <int M, bool WANT_PAIRS>
-cudaError_t launch_m(const float* bank, const float* prm, int n, const uint32_t* keys,
-                     int lane_offset, int n_total, float* out, float* w, int* pairs, int* ncorr,
-                     cudaStream_t st) {
+template <int M, int K, bool WANT_PAIRS>
+cudaError_t launch_m(const float* bank, const float* prm, int n, int m, int k,
+                     const uint32_t* keys, int lane_offset, int n_total, float* out, float* w,
+                     int* pairs, int* ncorr, cudaStream_t st) {
   const int blocks = (n + kPfThreads - 1) / kPfThreads;
-  pf_step_kernel<M, 16, WANT_PAIRS><<<blocks, kPfThreads, 0, st>>>(
+  pf_step_kernel<M, K, WANT_PAIRS><<<blocks, kPfThreads, 0, st>>>(
       bank, prm, n, keys[0], keys[1], keys[2], keys[3], lane_offset, n_total, out, w, pairs,
-      ncorr);
+      ncorr, m, k);
   return cudaGetLastError();
 }
 
-template <int M>
-cudaError_t launch_pairs(const float* bank, const float* prm, int n, const uint32_t* keys,
-                         int lane_offset, int n_total, float* out, float* w, int* pairs,
-                         int* ncorr, cudaStream_t st) {
+template <int M, int K>
+cudaError_t launch_pairs(const float* bank, const float* prm, int n, int m, int k,
+                         const uint32_t* keys, int lane_offset, int n_total, float* out, float* w,
+                         int* pairs, int* ncorr, cudaStream_t st) {
   if (pairs != nullptr && ncorr != nullptr)
-    return launch_m<M, true>(bank, prm, n, keys, lane_offset, n_total, out, w, pairs, ncorr, st);
+    return launch_m<M, K, true>(bank, prm, n, m, k, keys, lane_offset, n_total, out, w, pairs,
+                                ncorr, st);
   if (pairs != nullptr || ncorr != nullptr) return cudaErrorInvalidValue;
-  return launch_m<M, false>(bank, prm, n, keys, lane_offset, n_total, out, w, nullptr, nullptr,
-                            st);
+  return launch_m<M, K, false>(bank, prm, n, m, k, keys, lane_offset, n_total, out, w, nullptr,
+                               nullptr, st);
 }
 
 }  // namespace
 
 // pairs (2M, N) int32 and ncorr (N,) int32 are both null (weights only) or
-// both set (the straight variant's pairs output).
+// both set (the straight variant's pairs output).  1 <= k <= 128 detections,
+// 1 <= m <= 32 markers: K = 16 with 3 <= M <= 8 runs the specialised form.
 extern "C" int pfmpe_pf_step(const float* bank, const float* prm, int n, int m, int k,
                              unsigned int kr0, unsigned int kr1, unsigned int kt0,
                              unsigned int kt1, int lane_offset, int n_total, float* out,
@@ -168,18 +184,25 @@ extern "C" int pfmpe_pf_step(const float* bank, const float* prm, int n, int m, 
   const uint32_t keys[4] = {kr0, kr1, kt0, kt1};
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaSuccess;
-  if (k != 16) return (int)cudaErrorInvalidValue;
-#define PFMPE_CASE(M_) \
-  case M_:             \
-    return (int)launch_pairs<M_>(bank, prm, n, keys, lane_offset, n_total, out, w, pairs, ncorr, st);
-  switch (m) {
-    PFMPE_CASE(3)
-    PFMPE_CASE(4)
-    PFMPE_CASE(5)
-    PFMPE_CASE(6)
-    PFMPE_CASE(7)
-    PFMPE_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > kMaxK || m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
+#define PFMPE_CASE(M_, K_)                                                                  \
+  return (int)launch_pairs<M_, K_>(bank, prm, n, m, k, keys, lane_offset, n_total, out, w, \
+                                   pairs, ncorr, st);
+  if (k == 16) {  // the specialised shapes
+    switch (m) {
+      case 3: PFMPE_CASE(3, 16)
+      case 4: PFMPE_CASE(4, 16)
+      case 5: PFMPE_CASE(5, 16)
+      case 6: PFMPE_CASE(6, 16)
+      case 7: PFMPE_CASE(7, 16)
+      case 8: PFMPE_CASE(8, 16)
+      default: break;
+    }
+  }
+  switch (marker_bucket(m)) {  // the wide form
+    case 8: PFMPE_CASE(8, 0)
+    case 16: PFMPE_CASE(16, 0)
+    default: PFMPE_CASE(32, 0)
   }
 #undef PFMPE_CASE
 }

@@ -47,6 +47,13 @@ def project(camera: Camera, transform: torch.Tensor, points_h: torch.Tensor) -> 
     return torch.stack([u, v], dim=-1)
 
 
+def project_points(camera: Camera, transform: torch.Tensor, points_xyz: torch.Tensor
+                   ) -> torch.Tensor:
+    """Same as `project` for non-homogeneous (..., M, 3) points."""
+    ones = torch.ones_like(points_xyz[..., :1])
+    return project(camera, transform, torch.cat([points_xyz, ones], dim=-1))
+
+
 def _distort_normalized(camera: Camera, x, y):
     k1, k2, p1, p2, k3 = (camera.dist[i] for i in range(5))
     r2 = x * x + y * y

@@ -99,6 +99,29 @@ def inverse(transform: torch.Tensor) -> torch.Tensor:
     return _homogeneous(rot_t, t_new)
 
 
+def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matrix product with broadcasting over leading dims."""
+    return a @ b
+
+
+def rotation_rpy(angles: torch.Tensor) -> torch.Tensor:
+    """(..., 3) [a, b, c] -> Rz(c) @ Ry(b) @ Rx(a) as a (..., 4, 4) transform,
+    the composition order of the particle-propagation noise, in the
+    reference's expression order."""
+    a, b, c = angles[..., 0], angles[..., 1], angles[..., 2]
+    ca, sa = torch.cos(a), torch.sin(a)
+    cb, sb = torch.cos(b), torch.sin(b)
+    cc, sc = torch.cos(c), torch.sin(c)
+    zeros, ones = torch.zeros_like(a), torch.ones_like(a)
+    rows = [
+        [cc * cb, cc * sb * sa - sc * ca, cc * sb * ca + sc * sa, zeros],
+        [sc * cb, sc * sb * sa + cc * ca, sc * sb * ca - cc * sa, zeros],
+        [-sb, cb * sa, cb * ca, zeros],
+        [zeros, zeros, zeros, ones],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def predict_constant_velocity(
     previous_pose: torch.Tensor,
     current_pose: torch.Tensor,

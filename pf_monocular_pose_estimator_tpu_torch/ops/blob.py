@@ -50,6 +50,14 @@ def _argsort_stable(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, stable=True).indices
 
 
+def connected_components(fg: torch.Tensor, sweeps: int) -> torch.Tensor:
+    """Label foreground pixels by max-propagating flat indices: an int32
+    (H, W) label image, 0 on background, each component carrying the
+    1-based flat index of its largest pixel reached in `sweeps` sweeps of a
+    3x3 window (reference `ops/blob.py::connected_components`)."""
+    return dk.label_sweeps(fg, sweeps)
+
+
 def _split_and_compact(params: BlobParams, comp_ids, cx, cy, area, valid, var_xx, var_yy,
                        var_xy, min_area, max_area, img=None):
     """Split oversized elongated components into two detections, then

@@ -21,7 +21,19 @@ import torch
 from ..utils import cuda_lib
 
 N_MAPS = 10  # cnt, sx, sy, xmin, xmax, ymin, ymax, sxx, syy, sxy
-_STATS_TILE = 24  # the stats launch's interior tile (StatsShape::T in csrc/detect.cu)
+# What kernel A's `detect_stats` takes on the card (csrc/detect.cu): every
+# 0 <= sweeps <= MAX_SWEEPS and 1 <= topk <= min(MAX_TOPK, pixels).  Up to 12
+# sweeps run the default shapes, 13 to 32 the wide ones.
+MAX_SWEEPS = 32
+MAX_TOPK = 128
+
+
+def check_card_shape(sweeps: int, topk: int, pixels: int) -> None:
+    """Raise unless kernel A takes `sweeps` and `topk` on `pixels` pixels."""
+    if not 0 <= sweeps <= MAX_SWEEPS or not 1 <= topk <= min(MAX_TOPK, pixels):
+        raise ValueError(f"detect_stats: the kernel takes 0 <= sweeps <= {MAX_SWEEPS} and "
+                         f"1 <= topk <= min({MAX_TOPK}, pixels) (got sweeps = {sweeps}, "
+                         f"topk = {topk}, {pixels} pixels)")
 
 
 def gaussian_taps(sigma: float) -> np.ndarray:
@@ -184,11 +196,10 @@ def detect_stats(img: torch.Tensor, prm: torch.Tensor, ntaps: int, active: bool 
         return detect_stats_plain(img, prm, ntaps, active, sweeps, topk)
     cuda_lib.require_cuda("detect_stats", img, prm)
     h, w = img.shape
-    if not 0 <= sweeps <= 12 or not 1 <= topk <= min(64, h * w):
-        raise ValueError("detect_stats: the kernel takes sweeps <= 12 and 1 <= topk <= "
-                         "min(64, pixels)")
+    check_card_shape(sweeps, topk, h * w)
     lib = cuda_lib.library()
-    n_tiles = -(-h // _STATS_TILE) * -(-w // _STATS_TILE)
+    tile = lib.pfmpe_detect_stats_tile(sweeps)  # the per-tile key scratch is sized by it
+    n_tiles = -(-h // tile) * -(-w // tile)
     blurred = torch.empty_like(img)
     lab = torch.empty((h, w), dtype=torch.int32, device=img.device)
     maps = torch.empty((N_MAPS, h, w), dtype=torch.float32, device=img.device)

@@ -24,7 +24,7 @@ import torch
 from ..geometry.camera import Camera
 from ..tracker.multi import MultiTracker, stack_states, target_state
 from ..tracker.state import FrameResult, TargetState
-from ..tracker.step import Tracker
+from ..tracker.step import Tracker, check_card_limits
 from ..utils.config import TrackerConfig
 from .comm import DistMesh, LocalMesh, shard_lanes, unshard_lanes
 from .pf_kernels import make_sharded_pf_fn
@@ -82,12 +82,15 @@ def make_sharded_tracker(camera: Camera, markers_h, marker_mask, config: Tracker
     widen the window, or pass None for whole blocks, if it rises.
 
     `use_cam_pos=True` raises: the sharded step takes no observer pose, as
-    the reference's sharded step takes none."""
+    the reference's sharded step takes none.  So does, on a CUDA device, a
+    configuration the card's kernels do not take (`check_card_limits`)."""
     if config.use_cam_pos:
         raise ValueError("make_sharded_tracker: use_cam_pos=True needs an observer pose each "
                          "frame, and the sharded step takes none (nor does the reference's "
                          "parallel/mesh.py::make_sharded_tracker); use make_tracker")
     tracker_device = torch.device(device)
+    if tracker_device.type == "cuda":  # before anything reaches the card
+        check_card_limits(config, len(markers_h))
     camera = camera.to(tracker_device)
     return Tracker(
         camera, markers_h, marker_mask, config, tracker_device,

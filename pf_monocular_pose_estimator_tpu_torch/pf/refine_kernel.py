@@ -14,6 +14,7 @@ import torch
 
 from ..utils import cuda_lib
 from .refine import RefineResult, inv6_spd
+from .weight_kernel import MAX_MARKERS
 
 DAMPING = 1e-8
 EPS_THETA = 1e-8
@@ -185,8 +186,8 @@ def gn_refine(scal, poses, mark, du, dv, mask, max_iterations: int = 25, tol: fl
     if poses.device.type == "cpu":
         return gn_refine_plain(scal, poses, mark, du, dv, mask, max_iterations, tol)
     cuda_lib.require_cuda("gn_refine", *tensors)
-    if m > 8:
-        raise ValueError("gn_refine: the kernel takes at most 8 markers")
+    if not 1 <= m <= MAX_MARKERS:
+        raise ValueError(f"gn_refine: the kernel takes 1 <= M <= {MAX_MARKERS} markers (got {m})")
     lib = cuda_lib.library()
     dev = poses.device
     out_pose = torch.empty((b, 16), dtype=torch.float32, device=dev)

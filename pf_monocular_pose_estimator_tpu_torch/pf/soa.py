@@ -9,9 +9,24 @@ import torch
 from ..utils import prng
 
 
+def pack(bank: torch.Tensor) -> torch.Tensor:
+    """(N, 4, 4) -> (16, N)."""
+    return bank.reshape(bank.shape[0], 16).T
+
+
 def unpack(bank16: torch.Tensor) -> torch.Tensor:
     """(16, N) -> (N, 4, 4)."""
     return bank16.T.reshape(-1, 4, 4)
+
+
+def pack_single(pose: torch.Tensor) -> torch.Tensor:
+    """(4, 4) -> (16,)."""
+    return pose.reshape(16)
+
+
+def identity_bank16(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """(16, N) bank of identity poses."""
+    return torch.eye(4, dtype=dtype, device=device).reshape(16, 1).repeat(1, n)
 
 
 def compose_const_left(a: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
@@ -118,6 +133,19 @@ def propagate_soa(key, resampled16: torch.Tensor, current_pose, predicted_pose, 
     bank16 = torch.stack(rows)
     pins = (f(current_pose).reshape(16, 1), f(predicted_pose).reshape(16, 1))
     return torch.where(glane == 0, pins[0], torch.where(glane == 1, pins[1], bank16))
+
+
+def project_soa(camera, bank16: torch.Tensor, markers_h: torch.Tensor) -> torch.Tensor:
+    """Project M markers for all N particles -> (M, 2, N) pixel coordinates,
+    in the reference's expression order."""
+    x, y, z = (markers_h[:, i][:, None] for i in range(3))
+    xc = bank16[0][None] * x + bank16[1][None] * y + bank16[2][None] * z + bank16[3][None]
+    yc = bank16[4][None] * x + bank16[5][None] * y + bank16[6][None] * z + bank16[7][None]
+    zc = bank16[8][None] * x + bank16[9][None] * y + bank16[10][None] * z + bank16[11][None]
+    safe_z = torch.where(torch.abs(zc) < 1e-12, torch.full_like(zc, 1e-12), zc)
+    u = camera.fx * xc / safe_z + camera.cx
+    v = camera.fy * yc / safe_z + camera.cy
+    return torch.stack([u, v], dim=1)
 
 
 def weight_particles_soa(camera, bank16: torch.Tensor, markers_h: torch.Tensor,

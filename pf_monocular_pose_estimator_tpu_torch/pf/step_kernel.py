@@ -26,7 +26,7 @@ import torch
 
 from ..utils import cuda_lib, prng
 from .soa import compose_const_left, compose_const_right, noisy_rows, rotation_entries
-from .weight_kernel import pack_weight_params, weight_plain
+from .weight_kernel import check_card_shape, pack_weight_params, weight_plain
 
 
 def n_params(m: int, k: int) -> int:
@@ -97,8 +97,7 @@ def pf_step(bank16: torch.Tensor, prm: torch.Tensor, keys4, m: int, k: int,
     if bank16.device.type == "cpu":
         return pf_step_plain(bank16, prm, keys4, m, k, lane_offset, n_total, want_pairs)
     cuda_lib.require_cuda("pf_step", bank16, prm)
-    if k != 16 or not 3 <= m <= 8:
-        raise ValueError("pf_step: the kernel takes K = 16 detections and 3 <= M <= 8 markers")
+    check_card_shape("pf_step", m, k)
     lib = cuda_lib.library()
     dev = bank16.device
     out = torch.empty_like(bank16)

@@ -23,6 +23,18 @@ import torch
 from ..utils import cuda_lib
 
 BIG = 3.0e37  # distance sentinel of masked cells (reference pf/pallas_weight.py::_BIG)
+# What kernels B and E take on the card (csrc/pf_common.cuh kMaxK, kMaxM):
+# every 1 <= K <= MAX_DETECTIONS and 1 <= M <= MAX_MARKERS.  K = 16 with
+# 3 <= M <= 8 runs the specialised form, every other shape the wide form.
+MAX_DETECTIONS = 128
+MAX_MARKERS = 32
+
+
+def check_card_shape(name: str, m: int, k: int) -> None:
+    """Raise unless kernels B and E take M = m markers and K = k detections."""
+    if not (1 <= k <= MAX_DETECTIONS and 1 <= m <= MAX_MARKERS):
+        raise ValueError(f"{name}: the kernel takes 1 <= K <= {MAX_DETECTIONS} detections and "
+                         f"1 <= M <= {MAX_MARKERS} markers (got K = {k}, M = {m})")
 
 
 def n_weight_params(m: int, k: int) -> int:
@@ -113,8 +125,7 @@ def weight(bank16: torch.Tensor, wprm: torch.Tensor, m: int, k: int):
     if bank16.device.type == "cpu":
         return weight_plain(bank16, wprm, m, k)
     cuda_lib.require_cuda("weight", bank16, wprm)
-    if k != 16 or not 3 <= m <= 8:
-        raise ValueError("weight: the kernel takes K = 16 detections and 3 <= M <= 8 markers")
+    check_card_shape("weight", m, k)
     lib = cuda_lib.library()
     n = bank16.shape[1]
     dev = bank16.device

@@ -37,6 +37,7 @@ import torch
 
 from ..geometry.camera import Camera, project
 from ..geometry.se3 import exp_se3, inverse, log_se3, predict_constant_velocity
+from ..ops import detect_kernel
 from ..ops.blob import Detections, determine_roi, find_leds, grow_roi
 from ..ops.exposure import ExposureState, exposure_control
 from ..ops.faults import inject_faults
@@ -53,7 +54,7 @@ from ..pf.soa import (
 )
 from ..pf.step_kernel import fused_propagate_weight, resample_gather
 from ..pf.weight import weight_particles
-from ..pf.weight_kernel import weight_particles_bank
+from ..pf.weight_kernel import check_card_shape, weight_particles_bank
 from ..utils import prng
 from ..utils.config import TrackerConfig
 from ..utils.dynamic import DynamicParams
@@ -99,6 +100,18 @@ def _ego_motion(state: TargetState, t: torch.Tensor, obs_pose: torch.Tensor,
     return inverse(cam_move), state
 
 
+def check_card_limits(config: TrackerConfig, n_markers: int) -> None:
+    """Raise a ValueError that names the limit where the card's kernels do
+    not take this configuration with `n_markers` marker rows: B, E and D
+    take 1 to 32 markers and B and E 1 to 128 detections; A takes 0 to 32
+    `cc_sweeps` and a top-k (`max_detections`) of 1 to min(128, crop
+    pixels).  The CPU takes any."""
+    check_card_shape("Tracker", n_markers, config.max_detections)
+    crop = config.roi_crop
+    pixels = int(crop[0]) * int(crop[1]) if crop is not None else detect_kernel.MAX_TOPK
+    detect_kernel.check_card_shape(config.cc_sweeps, config.max_detections, pixels)
+
+
 class Tracker:
     """`step(state, image, t, obs_pose=None, obs_time=None, dyn=None) ->
     (state', FrameResult)` on one device.
@@ -117,12 +130,17 @@ class Tracker:
     the arguments of `fused_propagate_weight` less the camera) and
     `resample_fn(key, weights, bank) -> parallel.resample.DistResampleOut`
     replace the single-device passes; `mesh` is the particles mesh whose
-    sharded layout the state's bank then has."""
+    sharded layout the state's bank then has.
+
+    On a CUDA device it raises at construction for a configuration the
+    card's kernels do not take (`check_card_limits`)."""
 
     def __init__(self, camera: Camera, markers_h, marker_mask, config: TrackerConfig,
                  device="cuda", pf_fn=None, resample_fn=None, mesh=None):
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            check_card_limits(config, len(markers_h))
         self.pf_fn = pf_fn
         self.resample_fn = resample_fn
         if mesh is None:
@@ -706,3 +724,43 @@ def make_tracker(camera: Camera, markers_h, marker_mask, config: TrackerConfig,
     """Build the per-frame step for one target on `device` (the card unless
     asked otherwise); the hooks and the mesh as `Tracker` takes them."""
     return Tracker(camera, markers_h, marker_mask, config, device, pf_fn, resample_fn, mesh)
+
+
+_STEP_CACHE: dict = {}
+_STEP_CACHE_SIZE = 8
+
+
+def _value_key(x) -> tuple:
+    """A hashable key of a tensor's or array's dtype, shape and bytes."""
+    a = np.ascontiguousarray(torch.as_tensor(x).detach().cpu().numpy())
+    return (str(a.dtype), a.shape, a.tobytes())
+
+
+def tracker_step(state: TargetState, image: torch.Tensor, t, camera: Camera, markers_h,
+                 marker_mask, config: TrackerConfig, obs_pose=None, obs_time=None, dyn=None,
+                 resample_fn=None, pf_fn=None, wrap_replicated=None):
+    """Advance one target by one frame -> (state', FrameResult): the
+    reference's functional `tracker_step`, as a thin wrapper over `Tracker`.
+
+    It keeps one `Tracker` per (camera, markers, mask, config) and device in
+    a small cache (the oldest of 8 goes first; the key reads the camera and
+    markers on the host) and runs on the device that `state` lives on.  The
+    reference's SPMD hooks `resample_fn`, `pf_fn` and `wrap_replicated`,
+    which its `parallel/mesh.py` sets, have `parallel.make_sharded_tracker`
+    as their counterpart here: they must be None."""
+    given = [name for name, hook in (("resample_fn", resample_fn), ("pf_fn", pf_fn),
+                                     ("wrap_replicated", wrap_replicated)) if hook is not None]
+    if given:
+        raise TypeError(f"tracker_step: {', '.join(given)} are the reference's SPMD hooks; "
+                        "build a sharded step with parallel.make_sharded_tracker instead")
+    device = state.bank.device
+    cam = (camera.fx, camera.fy, camera.cx, camera.cy, camera.dist)
+    key = (tuple(_value_key(v) for v in cam), camera.width, camera.height,
+           _value_key(markers_h), _value_key(marker_mask), config, str(device))
+    step = _STEP_CACHE.get(key)
+    if step is None:
+        if len(_STEP_CACHE) >= _STEP_CACHE_SIZE:
+            _STEP_CACHE.pop(next(iter(_STEP_CACHE)))
+        step = _STEP_CACHE[key] = Tracker(camera, markers_h, marker_mask, config, device)
+    return step(state, image, t, obs_pose, obs_time, dyn)
+

@@ -5,7 +5,8 @@ machine they count as skipped.  On the GPU machine:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
 
-(chip_smoke.py runs the same checks at the main path's full shapes.)"""
+(chip_smoke.py runs the same checks at the main path's full shapes, and
+the SHAPE_* grid below with this file's generators in its [shapes] phase.)"""
 
 import numpy as np
 import pytest
@@ -25,6 +26,15 @@ from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
 from pf_monocular_pose_estimator_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.cuda
+
+
+# Shapes beyond the tracker's defaults (K = 16, M = 5, 12 sweeps, top-k 16)
+# that the card takes, every bucket of kernels B, E, D and A among them
+# (chip_smoke.py's [shapes] phase runs the same grid).
+SHAPE_K = (4, 12, 16, 32, 64, 128)
+SHAPE_M = (1, 3, 5, 8, 9, 16, 32)
+SHAPE_SWEEPS = (0, 4, 12, 20)
+SHAPE_TOPK = (16, 64, 100)
 
 
 @pytest.fixture
@@ -113,6 +123,53 @@ def test_detect_stats_edge_cases_exact(dev, case, shape, k):
     for i in range(dk.N_MAPS):
         assert torch.equal(got[1][i], want[1][i]), f"map {i}"
     assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
+
+
+def _large_blob_image(rng, h, w):
+    """`_image`'s noise and small blobs, a grid of 3x3 squares (more roots
+    than the largest top-k) and components wider than 24 px: a ring, a long
+    diagonal and a cross over the tiles' seams, which labels of more than 12
+    sweeps and their halos must follow."""
+    img = _image(rng, h, w).numpy()
+    img[4:h - 4:10, 4:w - 4:10] = 255.0
+    img[5:h - 4:10, 4:w - 4:10] = 255.0
+    yy, xx = np.mgrid[:h, :w]
+    r = np.hypot(yy - h * 0.4, xx - w * 0.45)
+    img[(r > 18) & (r < 21)] = 255.0
+    diag = np.abs((yy - 6) - 0.6 * (xx - 10)) < 1.2
+    img[diag & (xx < min(w, 90))] = 255.0
+    img[h // 2 - 1:h // 2 + 1, 20:min(w, 70)] = 255.0
+    img[max(0, h // 2 - 30):h // 2 + 30, 45:47] = 255.0
+    return torch.from_numpy(img)
+
+
+@pytest.mark.parametrize("topk", SHAPE_TOPK)
+@pytest.mark.parametrize("sweeps", SHAPE_SWEEPS)
+@pytest.mark.parametrize("shape", [(192, 256), (100, 90)])
+def test_detect_stats_every_shape_exact(dev, shape, sweeps, topk):
+    """Kernel A at every sweep count and top-k bucket (0, 4 and 12 sweeps on
+    the default shapes, 20 on the wide ones; top-k 16 and 64 on the default
+    merge, 100 on the wide one) against the plain version on
+    `_large_blob_image`: labels, maps and top-k equal."""
+    rng = np.random.default_rng(sweeps + topk)
+    h, w = shape
+    img = _large_blob_image(rng, h, w).to(dev)
+    prm = dk.make_params([0.0, 0.0, float(w), float(h)], 240.0, 8.0, 160.0, 0.6, dev)
+    got = dk.detect_stats(img, prm, 5, True, sweeps, topk)
+    want = dk.detect_stats_plain(img, prm, 5, True, sweeps, topk)
+    torch.cuda.synchronize()
+    roots = int((want[0] == torch.arange(1, h * w + 1, device=dev).reshape(h, w)).sum())
+    assert roots > (topk if h * w > 40_000 else 0)  # the small frame fills with non-roots
+    assert torch.equal(got[0], want[0])
+    for i in range(dk.N_MAPS):
+        assert torch.equal(got[1][i], want[1][i]), f"map {i}"
+    assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
+
+
+@pytest.mark.parametrize("sweeps,topk", [(13, 1), (32, 128), (32, 16)])
+def test_detect_stats_wide_ends_exact(dev, sweeps, topk):
+    """Kernel A at the ends of the wide shapes' range, the main crop's shape."""
+    test_detect_stats_every_shape_exact(dev, (192, 256), sweeps, topk)
 
 
 def _pf_inputs(dev, n, rng, cam_move_inv=None):
@@ -220,10 +277,49 @@ def greedy_edge_lanes(case, m, k=16, n=4099, seed=0):
     return bank, args, gt
 
 
-def _greedy_inputs(dev, case, m, n):
-    """`greedy_edge_lanes` on the card: the bank, kernel B's parameters (a
-    small noise step from the true pose) and kernel E's (their tail)."""
-    bank, a, gt = greedy_edge_lanes(case, m, 16, n)
+def shape_lanes(m, k, n=4099, seed=0):
+    """Lanes and weight arguments at M = m markers and K = k detection slots,
+    as `greedy_edge_lanes` returns them.  Markers 1 and 2 at one point (rows
+    tied across markers) where m >= 3; detections: the projections of
+    min(m, k - 1) markers in a shuffled order with noise, then an exact
+    duplicate of the first (ties within a row), every other slot masked on
+    the exact projection of a marker (padding that must never win); marker
+    m - 1 masked where m >= 2; random downgrades.  Lanes: poses near the true
+    one, from lane 2 on a NaN, an inf and a zero pose."""
+    rng = np.random.default_rng(seed + 1000 * m + k)
+    mk = rng.normal(0, 0.08, (m, 3)).astype(np.float32)
+    if m >= 3:
+        mk[2] = mk[1]
+    markers = np.concatenate([mk, np.ones((m, 1), np.float32)], 1)
+    gt = exp_se3(torch.tensor([0.02, -0.01, 0.0, 0.05, -0.03, 0.1])).numpy()
+    gt[2, 3] += 1.2
+    pts = (gt @ markers.T)[:3]
+    uv = np.stack([GREEDY_CAM["fx"] * pts[0] / pts[2] + GREEDY_CAM["cx"],
+                   GREEDY_CAM["fy"] * pts[1] / pts[2] + GREEDY_CAM["cy"]], 1).astype(np.float32)
+    real = max(1, min(m, k - 1))
+    order = rng.permutation(m)
+    det_xy = uv[np.arange(k) % m].copy()  # padding: exact projections, masked
+    det_xy[:real] = uv[order[:real]] + rng.normal(0, 0.3, (real, 2)).astype(np.float32)
+    det_mask = np.arange(k) < real
+    if k > real:
+        det_xy[real] = det_xy[0]
+        det_mask[real] = True
+    marker_mask = np.ones(m, bool)
+    if m >= 2:
+        marker_mask[m - 1] = False
+    downgrade = rng.random(m) < 0.3
+    tw = torch.from_numpy(rng.normal(0, 0.01, (n, 6)).astype(np.float32))
+    bank = (exp_se3(tw) @ torch.from_numpy(gt)).reshape(n, 16).T.contiguous().numpy()
+    bank[0, 2], bank[3, 3], bank[:, 4] = np.nan, np.inf, 0.0
+    args = dict(markers_h=markers, marker_mask=marker_mask, det_xy=det_xy, det_mask=det_mask,
+                tol_pf=10.0, tol_init=5.0, downgrade=downgrade)
+    return bank, args, gt
+
+
+def _card_params(dev, bank, a, gt):
+    """Lanes and weight arguments on the card: the bank and kernel B's
+    parameters (a small noise step from the true pose; kernel E's are their
+    tail)."""
     t = lambda x: torch.as_tensor(x).to(dev)
     gt = t(gt)
     nms = torch.tensor(float(a["marker_mask"].sum()))
@@ -237,6 +333,49 @@ def _greedy_inputs(dev, case, m, n):
     return t(bank), prm
 
 
+def _greedy_inputs(dev, case, m, n):
+    """`greedy_edge_lanes` on the card (`_card_params`)."""
+    return _card_params(dev, *greedy_edge_lanes(case, m, 16, n))
+
+
+def _check_pf_kernels(bank, prm, m, k):
+    """Kernels E and B (weights only and with pairs) against their plain
+    versions: weights, pairs, pair counts and banks equal (NaN where the
+    twin's bank is NaN) -> the plain weight's pair counts."""
+    wprm = prm[76:].contiguous()
+    got, want = wk.weight(bank, wprm, m, k), wk.weight_plain(bank, wprm, m, k)
+    keys = (5, 6, 7, 8)
+    got_b = sk.pf_step(bank, prm, keys, m, k)
+    got_p = sk.pf_step(bank, prm, keys, m, k, want_pairs=True)
+    want_p = sk.pf_step_plain(bank, prm, keys, m, k, want_pairs=True)
+    torch.cuda.synchronize()
+    n = bank.shape[1]
+    differ = (got[0] != want[0]) | (got[1] != want[1]).any(0).any(0) | (got[2] != want[2])
+    assert not bool(differ.any()), f"E differs from plain on {int(differ.sum())} of {n} lanes"
+    assert _equal_nan(got_p[0], want_p[0]) and _equal_nan(got_b[0], want_p[0])
+    assert torch.equal(got_p[2], want_p[2]) and torch.equal(got_p[3], want_p[3])
+    assert torch.equal(got_p[1], want_p[1]) and torch.equal(got_b[1], want_p[1])
+    return want[2]
+
+
+@pytest.mark.parametrize("k", SHAPE_K)
+@pytest.mark.parametrize("m", SHAPE_M)
+def test_pf_kernels_every_shape_exact(dev, m, k):
+    """Kernels E and B (both variants) at every bucket of K and M
+    (`shape_lanes`: ties across and within rows, masked padding on exact
+    projections, a masked marker, NaN and inf lanes) against their plain
+    versions, bit for bit."""
+    n_corr = _check_pf_kernels(*_card_params(dev, *shape_lanes(m, k)), m, k)
+    assert int(n_corr.max()) >= max(1, min(m, k - 1) - 1)  # the pinned lanes match
+
+
+@pytest.mark.parametrize("m,k", [(9, 32), (9, 128), (32, 64), (32, 128)])
+@pytest.mark.parametrize("case", GREEDY_CASES)
+def test_greedy_edge_cases_wide_exact(dev, case, m, k):
+    """`greedy_edge_lanes` at the wide form's shapes, bit for bit."""
+    _check_pf_kernels(*_card_params(dev, *greedy_edge_lanes(case, m, k, 1029)), m, k)
+
+
 @pytest.mark.parametrize("n", [4099, 45])
 @pytest.mark.parametrize("m", range(3, 9))
 @pytest.mark.parametrize("case", GREEDY_CASES)
@@ -244,22 +383,10 @@ def test_greedy_edge_cases_exact(dev, case, m, n):
     """Kernels E and B (weights only and with pairs) against their plain
     versions on `greedy_edge_lanes`: weights, pairs, pair counts and banks
     equal (NaN where the twin's bank is NaN)."""
-    bank, prm = _greedy_inputs(dev, case, m, n)
-    wprm = prm[76:].contiguous()
-    got, want = wk.weight(bank, wprm, m, 16), wk.weight_plain(bank, wprm, m, 16)
-    keys = (5, 6, 7, 8)
-    got_b = sk.pf_step(bank, prm, keys, m, 16)
-    got_p = sk.pf_step(bank, prm, keys, m, 16, want_pairs=True)
-    want_p = sk.pf_step_plain(bank, prm, keys, m, 16, want_pairs=True)
-    torch.cuda.synchronize()
-    differ = (got[0] != want[0]) | (got[1] != want[1]).any(0).any(0) | (got[2] != want[2])
-    assert not bool(differ.any()), f"E differs from plain on {int(differ.sum())} of {n} lanes"
-    assert _equal_nan(got_p[0], want_p[0]) and _equal_nan(got_b[0], want_p[0])
-    assert torch.equal(got_p[2], want_p[2]) and torch.equal(got_p[3], want_p[3])
-    assert torch.equal(got_p[1], want_p[1]) and torch.equal(got_b[1], want_p[1])
-    assert int((want[2] == 0).sum()) >= 12  # the NaN lanes form no pair
+    n_corr = _check_pf_kernels(*_greedy_inputs(dev, case, m, n), m, 16)
+    assert int((n_corr == 0).sum()) >= 12  # the NaN lanes form no pair
     if case == "ties":
-        assert int(want[2].max()) == m  # some lane matched every marker
+        assert int(n_corr.max()) == m  # some lane matched every marker
 
 
 def _equal_nan(a, b):
@@ -644,6 +771,14 @@ def test_gn_refine_every_m_exact(dev, m, b):
         assert torch.equal(want[0][diverging], args[1][diverging])
     for g, w in zip(got, want):  # a diverged run may leave NaN in its normal matrix
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("b", [11, 65])
+@pytest.mark.parametrize("m", SHAPE_M)
+def test_gn_refine_every_shape_exact(dev, m, b):
+    """Kernel D at the shape grid's marker counts (9, 16 and 32 on the
+    runtime-count instantiation) against its plain version, bit for bit."""
+    test_gn_refine_every_m_exact(dev, m, b)
 
 
 def test_gn_refine_matches_plain(dev):

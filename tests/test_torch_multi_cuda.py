@@ -4,10 +4,9 @@ Marked `cuda`; each test skips when torch sees no GPU.  On the GPU machine:
 
     python -m pytest --noconftest tests/test_torch_multi_cuda.py -m cuda -q
 
-The scene is tests/test_torch_parallel_multi.py's (two targets on the
-160x96 camera, one with a padded marker set), here with the kernels
-instead of their plain twins and with 16 detection slots, the K kernel B
-takes."""
+The scene and configuration are tests/test_torch_parallel_multi.py's (two
+targets on the 160x96 camera, one with a padded marker set, 12 detection
+slots), here with the kernels instead of their plain twins."""
 
 import dataclasses
 
@@ -27,7 +26,6 @@ from test_torch_parallel_multi import CONFIG, N, RING, _scene
 
 pytestmark = pytest.mark.cuda
 N_FRAMES = 4
-CARD = dict(CONFIG, max_detections=16)
 
 
 @pytest.fixture
@@ -51,7 +49,7 @@ def test_multi_tracker_forms_equal_on_card(dev):
     cam, markers, masks, frames = _scene(N_FRAMES)
     out = {}
     for sequential in (True, False):
-        step = make_multi_tracker(cam, markers, masks, TrackerConfig(**CARD),
+        step = make_multi_tracker(cam, markers, masks, TrackerConfig(**CONFIG),
                                   sequential=sequential, device=dev)
         sk.pf_step.launches = 0
         out[sequential] = _replay(step, create_states(2, N, 0, (160, 96), device=dev), frames,
@@ -66,7 +64,7 @@ def test_sharded_multi_tracker_on_card_matches_sequential(dev):
     """make_mesh(2, target_shards=2) on the card against the card's
     sequential multi-tracker: flags equal, poses within 1e-4."""
     cam, markers, masks, frames = _scene(N_FRAMES)
-    config = TrackerConfig(**CARD)
+    config = TrackerConfig(**CONFIG)
     mesh = make_mesh(2, target_shards=2)
     sharded = make_sharded_multi_tracker(cam, markers, masks, config, mesh, device=dev, **RING)
     state = shard_target_state(create_states(2, N, 0, (160, 96), device=dev), mesh, batched=True)
@@ -81,7 +79,7 @@ def test_sharded_multi_tracker_on_card_matches_sequential(dev):
 
 def test_multi_checkpoint_resumes_identically_on_card(dev, tmp_path):
     cam, markers, masks, frames = _scene(N_FRAMES)
-    step = make_multi_tracker(cam, markers, masks, TrackerConfig(**CARD), device=dev)
+    step = make_multi_tracker(cam, markers, masks, TrackerConfig(**CONFIG), device=dev)
     _, state = _replay(step, create_states(2, N, 0, (160, 96), device=dev), frames[:2], dev)
     path = str(tmp_path / "multi.npz")
     save_state(path, state)
