@@ -17,10 +17,12 @@ Phases (any failure raises and exits non-zero):
      shapes  -- (right after phase 3; tests/test_torch_kernels_cuda.py's
      grid and input generators) kernels B (both variants), E, D and
      A against their plain twins beyond the main path's shapes: K in
-     {4, 12, 16, 32, 64, 128}, M in {1, 3, 5, 8, 9, 16, 32}, 0, 4, 12, 20
-     and 32 sweeps, top-k 1, 16, 64, 100 and 128, every bucket of each,
-     max_abs_err 0; the wide shape (M = 16, K = 64 at N = 100,000; D at
-     M = 16; A at 20 sweeps and top-100) timed beside its bound;
+     {1, 4, 12, 16, 17, 32, 64, 127, 128}, M in {1, 3, 5, 8, 9, 10, 16, 31,
+     32}, 0, 4, 12, 13, 20, 24, 25 and 32 sweeps, top-k 1, 16, 64, 65, 100
+     and 128, max_abs_err 0; the wide shape (M = 16, K = 64 at N = 100,000,
+     with shape_lanes' detections and with every slot real; D at M = 16; A
+     at 20 sweeps and top-100) timed beside its bound, with the device time
+     of each of A's launches;
      tests/test_torch_parallel_multi.py's two-target scene at its
      configuration (max_detections=12) on the card and on the CPU, flags
      equal on every (frame, target); configs/two_uav_marker_positions.yaml
@@ -33,7 +35,10 @@ Phases (any failure raises and exits non-zero):
      < 10 mm, orientation error < 1.5 deg; the launch counters show which
      kernels the replay went through;
   5. timing  -- a second, warm replay: frames per second and device->host
-     syncs per frame;
+     syncs per frame; then [wide]: the same replay with cc_sweeps=20 and
+     max_detections=32, so that kernel A's wide path and B's wide form run
+     on every tracked frame: the same bars, the launches, the device time
+     of a warm frame and the card's idle share;
   6. slice   -- the same replay with use_fused_pf_kernel=False and
      use_pallas_resample=True (XLA-style propagation + kernel E, the
      sort-free resampler with kernel F): same bars, kernels E and F
@@ -126,7 +131,10 @@ card alone at N = 100,000 and 1,000,000 stands beside four one-shard
 launches, `index_select` and its bound, with the device time of one whole
 ring resampling (`ring_timings`).  `python3 chip_smoke.py --ring-only`
 runs only phases 1, 2 and that comparison, without the one-launch form,
-so that a checkout from before it can be measured on the same card.
+so that a checkout from before it can be measured on the same card;
+`python3 chip_smoke.py --wide-only` runs phases 1, 2, the wide shape's
+timings and [wide], for the same use with a checkout whose wrappers take
+the wide shapes.
 The experiments' settings are read from configs/experiments/ with the
 port's own YAML reader.  The last three lines are the card, the kernel
 table and the device line.  It imports nothing of JAX.
@@ -203,6 +211,9 @@ OTHER_EXPERIMENTS = ("uav_target", "two_targets", "outlier_robustness", "outdoor
                      "ipe_legacy")
 # kernel A's four CUDA kernels (csrc/detect.cu)
 KERNEL_A = ("threshold_blur_kernel", "label_kernel", "stats_kernel", "topk_merge_kernel")
+# the wide forms of kernels A, B and E, which use no local memory
+WIDE_KERNELS = ("label_round_kernel", "wide_stats_kernel", "roots_merge_kernel",
+                "pf_step_kernel<(int)0, (int)0", "pf_weight_kernel<(int)0, (int)0")
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM bytes per
 # second and float32 operations per second outside the tensor cores.  The
@@ -230,6 +241,81 @@ def weight_ops(m: int, k: int) -> int:
     row that is not retired never changes, so no step needs the volume
     again (pf_common.cuh)."""
     return 26 * m + 9 * m * k + m * (2 * m + 12)
+
+
+def weight_ops_needed(rows, wprm, m: int, k: int) -> int:
+    """Operations the greedy weight of the lanes `rows` (12, N) needs on
+    these inputs: `weight_ops` with the volume cut to the cells the data
+    needs -- every real detection's (mask term 0), and a masked slot's only
+    in a row whose minimum over the real ones reached the masked slots'
+    least cell (no masked cell can be a row's first minimum before;
+    pf_common.cuh)."""
+    import torch
+
+    n = rows.shape[1]
+    scal, mark = wprm[:8], wprm[8:8 + 4 * m]
+    dets = wprm[8 + 4 * m:8 + 4 * m + 3 * k]
+    big = dets[2 * k:]
+    real = big == 0
+    mk = mark[:3 * m].reshape(m, 3)
+    xc = rows[0:1] * mk[:, 0:1] + rows[1:2] * mk[:, 1:2] + rows[2:3] * mk[:, 2:3] + rows[3:4]
+    yc = rows[4:5] * mk[:, 0:1] + rows[5:6] * mk[:, 1:2] + rows[6:7] * mk[:, 2:3] + rows[7:8]
+    zc = rows[8:9] * mk[:, 0:1] + rows[9:10] * mk[:, 1:2] + rows[10:11] * mk[:, 2:3] + rows[11:12]
+    zc = torch.where(zc.abs() < 1e-12, torch.full_like(zc, 1e-12), zc)
+    u, v = scal[0] * xc / zc + scal[2], scal[1] * yc / zc + scal[3]  # (m, n)
+    dx, dy = dets[0:2 * k:2][real], dets[1:2 * k:2][real]
+    t = mark[3 * m:4 * m]
+    n_real, n_masked = int(real.sum()), int((~real).sum())
+    cells = m * n * n_real
+    if n_masked:
+        rmin = torch.full((m, n), float("inf"), device=rows.device)
+        for j in range(n_real):
+            du, dv = dx[j] - u, dy[j] - v
+            rmin = torch.minimum(rmin, du * du + dv * dv + t[:, None])
+        cells += int((rmin >= big[~real].min() + t[:, None]).sum()) * n_masked
+    return 26 * m * n + 9 * cells + n * m * (2 * m + 12)
+
+
+def detect_ops(img, prm, sweeps: int) -> int:
+    """Operations kernel A's `detect_stats` needs on these inputs: the blur
+    (26 a pixel); 9 a foreground pixel for each label sweep until the labels
+    stop changing; each foreground pixel's windowed sums ((s + 1)(2s + 1)
+    cells at 4 each and s + 1 rows at 6 each, s = sweeps; a background
+    pixel's are known); and 64 a foreground pixel (8 directions x 4 extrema
+    x a test and a min) for each bbox sweep until the extrema stop changing.
+    The sweeps are counted on the plain twin's maps."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
+
+    h, w = img.shape
+    fg = dk.threshold_blur_plain(img, prm, 5, True) > 1e-3
+    n_fg = int(fg.sum())
+    lab, lab_sweeps = dk.label_sweeps(fg, 0), 0
+    while lab_sweeps < sweeps:
+        nxt = dk.label_sweeps(fg, lab_sweeps + 1)
+        if torch.equal(nxt, lab):
+            break
+        lab, lab_sweeps = nxt, lab_sweeps + 1
+    lab = dk.label_sweeps(fg, sweeps)
+    flat = torch.arange(1, h * w + 1, dtype=torch.int32, device=img.device).reshape(h, w)
+    lab_b = torch.where(fg, lab, -flat)
+    xs = torch.arange(w, dtype=torch.float32, device=img.device)[None, :].expand(h, w)
+    ys = torch.arange(h, dtype=torch.float32, device=img.device)[:, None].expand(h, w)
+    ext = [torch.where(fg, c, torch.full_like(c, b)) for c, b in
+           ((xs, 1e9), (xs, -1e9), (ys, 1e9), (ys, -1e9))]
+    bbox_sweeps = 0
+    while bbox_sweeps < sweeps:
+        before = [e.clone() for e in ext]
+        for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1)):
+            same = dk.shift2d(lab_b, dy, dx) == lab_b
+            for i, op in enumerate((torch.minimum, torch.maximum) * 2):
+                ext[i] = torch.where(same, op(ext[i], dk.shift2d(ext[i], dy, dx)), ext[i])
+        if all(torch.equal(a, b) for a, b in zip(before, ext)):
+            break
+        bbox_sweeps += 1
+    s = sweeps
+    return (26 * h * w + n_fg * (9 * lab_sweeps + 4 * (s + 1) * (2 * s + 1) + 6 * (s + 1)
+                                 + 64 * bbox_sweeps))
 
 
 # propagation of one particle: two 4x4 composes (224), six threefry draws
@@ -416,9 +502,8 @@ def check_kernels(device, d, cam, markers):
     n_roots = int((lab == torch.arange(1, 192 * 256 + 1, device=device).reshape(192, 256)).sum())
     assert n_roots >= 5, "the crop should hold the five LEDs"
     px = crop.numel()
-    # read the crop, write labels and 10 maps; blur (26), 12 label sweeps
-    # over 3x3 (9 each) and 10 moment accumulations (2 each) a pixel
-    b_ms, b_by = bound(4 * px + 4 * px * (1 + dk.N_MAPS) + 8 * 16, (26 + 12 * 9 + 20) * px)
+    # read the crop, write labels and 10 maps; the operations of detect_ops
+    b_ms, b_by = bound(4 * px + 4 * px * (1 + dk.N_MAPS) + 8 * 16, detect_ops(crop, prm_c, 12))
     rows.append(dict(name="detect_stats", route="cuda",
                      source="pf_monocular_pose_estimator_tpu_torch/csrc/detect.cu",
                      replaces=f"{REF}/ops/pallas_kernels.py:299", max_abs_err=0.0,
@@ -1173,11 +1258,10 @@ def launch_times_us(fn, reps: int = 20, attempts: int = 3):
 
 
 def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
-    """The build report of every kernel (E, F, G and H must use no local
-    memory, B none beyond the math library's 32-byte sincosf frame, both
-    checked on the forms the tracker runs by default, K = 16 and M <= 8,
-    and reported on the wide forms; the registers of B and E at the main
-    path's M = 5) and the device time of
+    """The build report of every kernel (E, F, G, H and the wide forms of A,
+    B and E must use no local memory, B's default forms none beyond the math
+    library's 32-byte sincosf frame; the registers of B and E at the main
+    path's M = 5 and of the wide forms) and the device time of
     each launch of kernels A, B, D, E and H on their main-path inputs (H:
     one launch over the 4 shards of B's bank, every block reaching every
     shard, at the positions of the stratified ancestors of B's weights)."""
@@ -1186,11 +1270,13 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
     from pf_monocular_pose_estimator_tpu_torch.pf.soa import stratified_resample_soa
     from pf_monocular_pose_estimator_tpu_torch.utils import prng
 
-    greedy_regs = {}
+    greedy_regs, wide_regs = {}, {}
     for src, name, regs, frame, stores, loads in ptxas_report(cuda_lib):
         print(f"[report] ptxas {src} {name}: {regs} registers, {frame} bytes stack frame, "
               f"{stores} bytes spill stores, {loads} bytes spill loads")
-        if ", (int)0" in name:  # a wide form of B or E (K at run time): reported
+        if name.startswith(WIDE_KERNELS):
+            wide_regs[name] = regs
+            assert frame == stores == loads == 0, f"{src} {name} uses local memory"
             continue
         if src in ("resample_decode.cu", "monotone_gather.cu", "pf_weight.cu", "ring_gather.cu"):
             assert frame == stores == loads == 0, f"{src} {name} uses local memory"
@@ -1198,7 +1284,8 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
             assert frame <= 32 and stores == loads == 0, f"{src} {name} uses local memory"
         if name.startswith(("pf_step_kernel<(int)5,", "pf_weight_kernel<(int)5,")):
             greedy_regs[name] = regs
-    print(f"[report] {card_line()}: registers of kernels B and E at M = 5: {greedy_regs}")
+    print(f"[report] {card_line()}: registers of kernels B and E at M = 5: {greedy_regs}; of "
+          f"the wide forms of A, B and E: {wide_regs}")
     crop, prm = crop_inputs(d, device)
     gn_args = gn_inputs(d, cam, markers, device)
     bank, prm_b, keys, _ = pf_inputs(d, cam, markers, device)
@@ -1225,6 +1312,7 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
 # 12 sweeps and top-k 16) with that file's input generators
 SHAPE_LANES = 20_000
 WIDE = dict(m=16, k=64, sweeps=20, topk=100)  # the wide shape timed at N_PARTICLES
+WIDE_REPLAY = dict(cc_sweeps=20, max_detections=32)  # [wide]: A's and B's wide forms every frame
 TEN_MARKERS = ROOT / "configs" / "two_uav_marker_positions.yaml"
 TEN_FRAMES = 8
 TWIN_FRAMES = 6
@@ -1326,36 +1414,7 @@ def shape_phase(device, d, card, counted) -> dict:
     assert err_a == 0.0, f"[shapes] A differs from its plain twin by {err_a}"
     out["max_abs_err"] = dict(pf=err_pf, gn=err_d, detect=err_a)
 
-    # the wide shape's times beside its bounds
-    m, k, n = WIDE["m"], WIDE["k"], N_PARTICLES
-    bank, prm = grid._card_params(device, *grid.shape_lanes(m, k, n))
-    wprm = prm[76:].contiguous()
-    args_d = grid._gn_batch(m, 2 * m + 1, device)[0]
-    blobs, prm_blobs = frames_a["blobs 192x256"]
-    sw, tk = WIDE["sweeps"], WIDE["topk"]
-    px = blobs.numel()
-    shapes = {"pf_step": f"M={m}, K={k}, N={n}", "pf_weight": f"M={m}, K={k}, N={n}",
-              "gn_refine": f"M={m}, {2 * m + 1} hypotheses",
-              "detect_stats": f"192x256 of many blobs, {WIDE['sweeps']} sweeps, "
-                              f"top-{WIDE['topk']}"}
-    wide = {
-        "pf_step": (lambda: sk.pf_step(bank, prm, keys, m, k),
-                    bound(n * (64 + 64 + 4), n * (PROPAGATE_OPS + weight_ops(m, k)))),
-        "pf_weight": (lambda: wk.weight(bank, wprm, m, k),
-                      bound(n * (48 + 4 + 8 * m + 4), n * weight_ops(m, k))),
-        "gn_refine": (lambda: rk.gn_refine(*args_d, 25, 1e-4),
-                      bound(4 * sum(a.numel() for a in args_d) + 4 * (2 * m + 1) * 60, 0)),
-        "detect_stats": (lambda: dk.detect_stats(blobs, prm_blobs, 5, True, sw, tk),
-                         bound(4 * px + 4 * px * (1 + dk.N_MAPS) + 8 * tk,
-                               (26 + sw * 9 + 20) * px)),
-    }
-    out["wide"] = {}
-    for name, (fn, (b_ms, b_by)) in wide.items():
-        row = dict(device_ms=device_time_ms(fn), ms=time_ms(fn), bound_ms=b_ms, bound_by=b_by)
-        out["wide"][name] = row
-        print(f"[shapes] {card}: {name} ({shapes[name]}): {row['device_ms'] * 1e3:.2f} us on "
-              f"the card alone, {row['ms'] * 1e3:.1f} us by events, bound {b_ms * 1e3:.2f} us "
-              f"({b_by})")
+    out["wide"] = wide_timings(device, card)
 
     # the CPU twin's two-target scene at its configuration, card against CPU
     cam_s, markers_s, masks_s, frames_s = _scene(TWIN_FRAMES)
@@ -1417,6 +1476,114 @@ def shape_phase(device, d, card, counted) -> dict:
                                 launches=card_ten.launches))
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[shapes] the phase took {out['seconds']:.1f} s")
+    return out
+
+
+def launch_spans_us(fn, reps: int = 10, attempts: int = 3):
+    """Device µs of each launch one call of `fn` makes, in launch order,
+    averaged over `reps` calls under torch.profiler -> [(kernel, µs), ...];
+    a trace that lists no device span is taken again, up to `attempts`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, kernel_name(e.name)[:40],
+                        e.time_range.end - e.time_range.start) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans and len(spans) % reps == 0:
+            per = len(spans) // reps
+            return [(spans[i][1], round(sum(spans[r * per + i][2] for r in range(reps)) / reps, 3))
+                    for i in range(per)]
+    return "not measured (the profiler saw no device time)"
+
+
+def wide_timings(device, card) -> dict:
+    """The wide shape (WIDE: B and E at M = 16, K = 64 on N_PARTICLES lanes
+    of tests/test_torch_kernels_cuda.py's `shape_lanes`, and with every slot
+    a real detection; D at M = 16; A at 20 sweeps and top-100 on its
+    192x256 frame of many blobs) on the card alone and by events, beside
+    its bound, with the device time of each of A's launches."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
+    from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel as rk
+    from pf_monocular_pose_estimator_tpu_torch.pf import step_kernel as sk
+    from pf_monocular_pose_estimator_tpu_torch.pf import weight_kernel as wk
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    threads = torch.get_num_threads()  # a test module sets its own
+    import test_torch_kernels_cuda as grid
+    torch.set_num_threads(threads)
+    m, k, n = WIDE["m"], WIDE["k"], N_PARTICLES
+    keys = (5, 6, 7, 8)
+    lanes = {}
+    for dets in ("shape_lanes", "every slot real"):
+        bank, a, gt = grid.shape_lanes(m, k, n)
+        if dets != "shape_lanes":
+            a["det_mask"][:] = True
+        lanes[dets] = grid._card_params(device, bank, a, gt)
+    args_d = grid._gn_batch(m, 2 * m + 1, device)[0]
+    blobs = grid._large_blob_image(np.random.default_rng(11), 192, 256).to(device)
+    prm_a = dk.make_params([0.0, 0.0, 256.0, 192.0], 240.0, 8.0, 160.0, 0.6, device)
+    sw, tk = WIDE["sweeps"], WIDE["topk"]
+    px = blobs.numel()
+    rows = {}
+    for dets, (bank, prm) in lanes.items():
+        wprm = prm[76:].contiguous()
+        out_bank = sk.pf_step(bank, prm, keys, m, k)[0]
+        tag = "" if dets == "shape_lanes" else ", every slot real"
+        rows[f"pf_step{tag}"] = (
+            f"M={m}, K={k}, N={n}{tag}", lambda b=bank, p=prm: sk.pf_step(b, p, keys, m, k),
+            n * (64 + 64 + 4), n * PROPAGATE_OPS + weight_ops_needed(out_bank[:12], wprm, m, k),
+            n * (PROPAGATE_OPS + weight_ops(m, k)))
+        rows[f"pf_weight{tag}"] = (
+            f"M={m}, K={k}, N={n}{tag}", lambda b=bank, w=wprm: wk.weight(b, w, m, k),
+            n * (48 + 4 + 8 * m + 4), weight_ops_needed(bank[:12], wprm, m, k),
+            n * weight_ops(m, k))
+    rows["gn_refine"] = (f"M={m}, {2 * m + 1} hypotheses", lambda: rk.gn_refine(*args_d, 25, 1e-4),
+                         4 * sum(a.numel() for a in args_d) + 4 * (2 * m + 1) * 60, 0, 0)
+    ops_a = detect_ops(blobs, prm_a, sw)
+    rows["detect_stats"] = (f"192x256 of many blobs, {sw} sweeps, top-{tk}",
+                            lambda: dk.detect_stats(blobs, prm_a, 5, True, sw, tk),
+                            4 * px + 4 * px * (1 + dk.N_MAPS) + 8 * tk, ops_a, ops_a)
+    out = {"card": card}
+    for name, (shape, fn, n_bytes, n_ops, all_cells_ops) in rows.items():
+        b_ms, b_by = bound(n_bytes, n_ops)
+        row = dict(shape=shape, device_ms=device_time_ms(fn), ms=time_ms(fn), bound_ms=b_ms,
+                   bound_by=b_by, every_cell_bound_ms=bound(n_bytes, all_cells_ops)[0])
+        out[name] = row
+        print(f"[shapes] {card}: {name} ({shape}): {row['device_ms'] * 1e3:.2f} us on the card "
+              f"alone, {row['ms'] * 1e3:.1f} us by events, bound {b_ms * 1e3:.2f} us ({b_by}; "
+              f"every cell of the volume {row['every_cell_bound_ms'] * 1e3:.2f} us)")
+    spans = launch_spans_us(rows["detect_stats"][1])
+    out["detect_stats"]["launch_us"] = spans
+    print(f"[shapes] {card}: detect_stats ({rows['detect_stats'][0]}) launches (us): {spans}")
+    return out
+
+
+def wide_phase(device, d, cam, markers, card, counted_replay) -> dict:
+    """[wide]: the main path with WIDE_REPLAY (cc_sweeps=20,
+    max_detections=32), so that kernel A runs its wide path (20 sweeps) and
+    B its wide form (K = 32) on every tracked frame: the golden's bars
+    (every frame updated, ATE < 10 mm, orientation < 1.5 deg), the launches
+    of A, #2, B, C and D, the device time of a warm frame and the card's
+    idle share (`idle_share`)."""
+    run = counted_replay("wide", WIDE_REPLAY)
+    for name in ("threshold_blur", "detect_stats", "pf_step", "gn_refine"):
+        assert run.launches[name] > 0, f"[wide] never launched {name}"
+    idle = idle_share(device, d, cam, markers, overrides=WIDE_REPLAY)
+    out = dict(config=WIDE_REPLAY, updated=int(run.updated.sum()), frames=len(run.updated),
+               ate_mm=run.ate * 1e3, orientation_deg=run.ori,
+               launches={name: run.launches[name] for name in
+                         ("detect_stats", "threshold_blur", "pf_step", "resample_gather",
+                          "gn_refine")},
+               idle=idle, card=card)
+    print(f"[wide] {card}: {out}")
     return out
 
 
@@ -2130,13 +2297,6 @@ def main() -> int:
         print(json.dumps({"ring": ring}))
         return 0
 
-    # 3. kernels against plain
-    d, cam, markers = load_golden(device)
-    rows = check_kernels(device, d, cam, markers)
-    torch.cuda.synchronize()
-    report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk)
-    ring = ring_timings(device, batched=True)
-
     def summary(cold, warm):
         return {"frames_per_second": warm.frames_per_second,
                 "syncs_per_frame": warm.syncs_per_frame, "ate_mm": cold.ate * 1e3,
@@ -2193,6 +2353,22 @@ def main() -> int:
               f"{run.syncs_per_frame:.2f} device->host syncs per frame")
         return run
 
+    if sys.argv[1:] == ["--wide-only"]:
+        # the wide shapes' times and [wide], for a checkout whose wrappers match
+        d, cam, markers = load_golden(device)
+        out = {"wide_shapes": wide_timings(device, card),
+               "wide": wide_phase(device, d, cam, markers, card, counted_replay)}
+        print(card)
+        print(json.dumps(out))
+        return 0
+
+    # 3. kernels against plain
+    d, cam, markers = load_golden(device)
+    rows = check_kernels(device, d, cam, markers)
+    torch.cuda.synchronize()
+    report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk)
+    ring = ring_timings(device, batched=True)
+
     # [shapes]: the kernels beyond the main path's shapes, the twin scene, ten markers
     shapes = shape_phase(device, d, card, counted)
 
@@ -2205,6 +2381,8 @@ def main() -> int:
     main_warm = warm_replay("timing")
     idle = idle_share(device, d, cam, markers)
     print(f"[idle] {card}: main path, 20 warm frames: {idle}")
+    # [wide]: the main path with kernel A's and B's wide forms on every frame
+    wide = wide_phase(device, d, cam, markers, card, counted_replay)
 
     # 6. the slice: XLA-style propagation + kernel E, sort-free resampling (kernel F)
     slice_run = counted_replay("slice", SLICE)
@@ -2304,7 +2482,7 @@ def main() -> int:
                         default_ring_clipped=int(default_run.clipped[-1])),
         "sharded_large": dict(summary(large_run, large_warm), n_particles=N_LARGE,
                               frames=SHORT_FRAMES, clipped=int(large_run.clipped[-1])),
-        "ring": ring, "shapes": shapes, **new_paths}))
+        "ring": ring, "shapes": shapes, "wide": wide, **new_paths}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

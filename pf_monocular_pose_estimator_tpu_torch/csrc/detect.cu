@@ -25,12 +25,29 @@
 //     the sweeps run in.
 // Out-of-frame neighbours never match (label 0 here; the Pallas rolls bring
 // in biased labels that never compare equal, which is the same thing).
-// Those halos are for at most 12 sweeps, the tracker's default.  13 to 32
-// sweeps run the wide shapes, whose halos are sized the same way for 32:
-// labels a 32 px halo around a 32x32 tile (512 threads), stats a 64 px halo
-// around a 16x16 tile (512 threads, 223 KB of shared memory), both in
-// dynamic shared memory, the stats' bbox sweeps reading their values from
-// shared memory instead of registers.
+// Those halos are for at most 12 sweeps and a top-k of at most 64, the
+// tracker's defaults.  Beyond them (13 to 32 sweeps, or a top-k of 65 to
+// 128) the wide path runs the same work in rounds through global memory,
+// every round exact on its own tiles:
+//   * labels: a sweep is a function of the last label map alone, so s
+//     sweeps are rounds of at most 12, each a launch of 32x32 tiles with
+//     the 12 px halo started from the last round's map (ping-pong in global
+//     memory, the last round into the output);
+//   * bbox: the same holds for the four bbox maps.  A value moves at most
+//     3 px a sweep (three of the eight directions step each way), so a
+//     round of 4 sweeps on a 32x32 tile with a 12 px halo is exact, and one
+//     round of any sweeps <= 6 is exact by the label argument above.
+//     Between rounds a pixel's extrema travel as one 32-bit word of bytes
+//     relative to the pixel (each lies within 2 x 32 px of it);
+//   * windowed sums: a pixel's sums need the final labels within `sweeps`
+//     px and nothing else, so blocks of a second kind in the first bbox round's
+//     launch stage a 24x24 tile with that reach above and beside it, split
+//     the foreground pixels' windows into rows over all 1024 threads and add
+//     the rows' integer sums with shared-memory atomics.  They also append
+//     their tile's best roots' keys to one compact list;
+//   * top-k: one block takes the top-k of that list (the roots, which all
+//     score > 0) and fills the rest with the lowest flat indices that are
+//     not roots (score 0).
 //
 // Both sweep loops work on lists.  Only foreground pixels change; they are
 // listed once, the sweeping threads (one listed pixel each while the list
@@ -46,13 +63,14 @@
 // __vminu4 gated by one bit.  Background pixels skip the windowed sums,
 // whose result there is known (count 1, every moment +0).
 //
-// The top-k (1 to 128) is exact in two stages.  The ranking (score descending, flat
-// index ascending) is a strict total order, encoded as one 64-bit key
-// (float bits of the score << 32 | 0xFFFFFFFF - index; scores are >= 0, so
-// their bits sort as unsigned integers), and the global top-k lies in the
-// union of the tiles' top-k.  Every root scores > 0 and every other pixel
-// exactly 0, so a tile's top-k is its roots by key, then its other pixels by
-// index; the stats launch writes them, and one block merges the tiles' keys.
+// The default path's top-k (1 to 64) is exact in two stages.  The ranking
+// (score descending, flat index ascending) is a strict total order, encoded
+// as one 64-bit key (float bits of the score << 32 | 0xFFFFFFFF - index;
+// scores are >= 0, so their bits sort as unsigned integers), and the global
+// top-k lies in the union of the tiles' top-k.  Every root scores > 0 and
+// every other pixel exactly 0, so a tile's top-k is its roots by key, then
+// its other pixels by index; the stats launch writes them, and one block
+// merges the tiles' keys.
 //
 // Blur sums keep the reference's tap order, and the moment sums are exact
 // integers in any order; built with --fmad=false, so the blurred map,
@@ -61,6 +79,9 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -72,12 +93,15 @@ constexpr int kLabSpan = kLabTile + 2 * kLabHalo;  // 56
 constexpr int kLabThreads = 256;
 constexpr int kStHalo = 24;                        // 2 x the largest sweep count
 constexpr int kMaxSweeps = kLabHalo;               // the default shapes' sweeps
-constexpr int kLabWideHalo = 32;                   // the wide shapes: up to 32 sweeps
-constexpr int kLabWideThreads = 512;
-constexpr int kStWideHalo = 2 * kLabWideHalo;
-constexpr int kWideSweeps = kLabWideHalo;
-constexpr int kMaxTopk = 64;   // the merge's list of the default shapes
-constexpr int kWideTopk = 128;  // and the largest top-k
+constexpr int kMaxTopk = 64;   // the default merge's list
+constexpr int kWideSweeps = 32;  // the wide path's largest sweep count
+constexpr int kWideTopk = 128;   // and top-k
+// the wide path's launches (see the head of this file)
+constexpr int kLabRoundThreads = 1024;
+constexpr int kBbTile = 32, kBbHalo = 12, kBbThreads = 1024;
+constexpr int kBbRoundSweeps = kBbHalo / 3;  // a value moves at most 3 px a sweep
+constexpr int kSumTile = 24;
+constexpr int kMergeSort = 4096, kMergeSortThreads = 256;  // the wide merge's sorts
 constexpr int kMergeThreads = 256;
 constexpr int kMergeHeld = 8;  // keys a lane of the merge holds in registers
 
@@ -201,16 +225,17 @@ struct LabShape {
   static constexpr int P = kSpan + 2;  // the span with a ring of zeros
   static constexpr int S2 = kSpan * kSpan;
   static constexpr int kLoad = (S2 + NT - 1) / NT;
-  static constexpr int kSmem = 2 * P * P * 4 + S2 * 2;  // both label buffers, the list
   static_assert(kLoad <= 32, "a thread's foreground pixels are bits of one word");
 };
 
 // 3x3 max-label propagation, exactly `sweeps` sweeps, labels = 1-based flat
 // index of the pixel, 0 on background.  Only foreground pixels change: they
 // are listed and swept (label_sweeps) in a span with a ring of zeros, so no
-// neighbour needs a bounds check.
-template <int Halo, int NT, int P = LabShape<Halo, NT>::P>
-__device__ __forceinline__ void label_tile(const float* __restrict__ blurred, int h, int w,
+// neighbour needs a bounds check.  Src = float: from the blurred map
+// (foreground > 1e-3); Src = int: from a label map (foreground > 0), the
+// wide path's later rounds.
+template <int Halo, int NT, class Src = float, int P = LabShape<Halo, NT>::P>
+__device__ __forceinline__ void label_tile(const Src* __restrict__ src, int h, int w,
                                            int sweeps, int* __restrict__ lab_out,
                                            int (*lab)[P * P], unsigned short* list, int& s_n,
                                            int& s_fin) {
@@ -222,12 +247,19 @@ __device__ __forceinline__ void label_tile(const float* __restrict__ blurred, in
   if (tid == 0) s_n = s_fin = 0;
   for (int i = tid; i < P * P; i += NT) lab[0][i] = lab[1][i] = 0;
   unsigned fg = 0;  // bit r: pixel tid + r * NT is foreground
+  int init[kLoad];  // Src = int: the pixel's label
 #pragma unroll
   for (int r = 0; r < kLoad; ++r) {
     const int i = tid + r * NT;
     const int gy = oy + i / kSpan, gx = ox + i % kSpan;
-    if (i < S2 && gy >= 0 && gy < h && gx >= 0 && gx < w && blurred[gy * w + gx] > 1e-3f)
-      fg |= 1u << r;
+    const bool in = i < S2 && gy >= 0 && gy < h && gx >= 0 && gx < w;
+    if constexpr (std::is_integral_v<Src>) {
+      init[r] = in ? src[gy * w + gx] : 0;
+      if (init[r] > 0) fg |= 1u << r;
+    } else {
+      init[r] = 0;
+      if (in && src[gy * w + gx] > 1e-3f) fg |= 1u << r;
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -236,7 +268,7 @@ __device__ __forceinline__ void label_tile(const float* __restrict__ blurred, in
     const int ly = i / kSpan, lx = i % kSpan;
     const int pi = (ly + 1) * P + lx + 1;
     const bool f = (fg >> r) & 1u;
-    if (f) lab[0][pi] = lab[1][pi] = (oy + ly) * w + ox + lx + 1;
+    if (f) lab[0][pi] = lab[1][pi] = init[r] > 0 ? init[r] : (oy + ly) * w + ox + lx + 1;
     const unsigned ball = __ballot_sync(0xFFFFFFFFu, f);
     int at = 0;
     if (lane == 0 && ball) at = atomicAdd(&s_n, __popc(ball));
@@ -275,31 +307,29 @@ __global__ void __launch_bounds__(kLabThreads)
   label_tile<kLabHalo, kLabThreads>(blurred, h, w, sweeps, lab_out, lab, list, s_n, s_fin);
 }
 
-// 13 to 32 sweeps: the same in dynamic shared memory.
-__global__ void __launch_bounds__(kLabWideThreads)
-    label_wide_kernel(const float* __restrict__ blurred, int h, int w, int sweeps,
-                      int* __restrict__ lab_out) {
-  using Sh = LabShape<kLabWideHalo, kLabWideThreads>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto lab = reinterpret_cast<int (*)[Sh::P * Sh::P]>(smem_raw);
-  auto list = reinterpret_cast<unsigned short*>(smem_raw + 2 * Sh::P * Sh::P * 4);
+// The wide path's label rounds (at most 12 sweeps each): 1024 threads, from
+// the blurred map (the first round) or from the last round's labels.
+template <class Src>
+__global__ void __launch_bounds__(kLabRoundThreads)
+    label_round_kernel(const Src* __restrict__ src, int h, int w, int sweeps,
+                       int* __restrict__ lab_out) {
+  using Sh = LabShape<kLabHalo, kLabRoundThreads>;
+  __shared__ int lab[2][Sh::P * Sh::P];
+  __shared__ unsigned short list[Sh::S2];
   __shared__ int s_n, s_fin;
-  label_tile<kLabWideHalo, kLabWideThreads>(blurred, h, w, sweeps, lab_out, lab, list, s_n,
-                                            s_fin);
+  label_tile<kLabHalo, kLabRoundThreads, Src>(src, h, w, sweeps, lab_out, lab, list, s_n,
+                                              s_fin);
 }
 
 // The stats launch's shape: an interior tile of T x T pixels in a span of
-// (T + 2 Halo)^2, exact for up to Halo / 2 sweeps.  The default shape
-// (StatsShape, up to 12 sweeps): T = 24 measured faster on the H100 than 16
-// (more redundant span loads) and 32 (a longer chain of barriers in each
-// block, on fewer SMs): PERF.md, kernel A.  The wide shape (up to 32
-// sweeps): T = 16, the largest tile whose span fits a block's shared memory;
-// its bbox sweeps keep their values in shared memory (kRegSweeps false).
-template <int T_, int Halo_, int NT_, bool RegSweeps_>
+// (T + 2 Halo)^2, exact for up to Halo / 2 sweeps.  StatsShape (up to 12
+// sweeps): T = 24 measured faster on the H100 than 16 (more redundant span
+// loads) and 32 (a longer chain of barriers in each block, on fewer SMs):
+// PERF.md, kernel A.
+template <int T_, int Halo_, int NT_>
 struct StatsShapeT {
   static constexpr int T = T_;
   static constexpr int kHalo = Halo_;
-  static constexpr bool kRegSweeps = RegSweeps_;
   static constexpr int kSpan = T + 2 * kHalo;
   static constexpr int kSpan2 = kSpan * kSpan;
   static constexpr int kThreads = NT_;
@@ -312,10 +342,9 @@ struct StatsShapeT {
   static_assert(T * T % 32 == 0 && kSpan2 % 2 == 0, "tile shape");
   static_assert(T * T * 8 <= kSpan2 * 4, "the roots' keys must fit the label buffer");
   static_assert(kSmem <= 232448 - 64, "a block's shared memory");
-  static_assert(T * T >= kWideTopk, "a tile fills its top-k from its own pixels");
+  static_assert(T * T >= kMaxTopk, "a tile fills its top-k from its own pixels");
 };
-using StatsShape = StatsShapeT<24, kStHalo, 512, true>;
-using StatsWideShape = StatsShapeT<16, kStWideHalo, 512, false>;
+using StatsShape = StatsShapeT<24, kStHalo, 512>;
 
 // shifted[y, x] = src[y - dy, x - dx], in the reference's direction order
 __device__ __forceinline__ int dir_dy(int d) {
@@ -363,37 +392,6 @@ __device__ __forceinline__ void bbox_sweeps(int tid, int nsw, int nlist,
           }
           nxt[i] = val[r];
         }
-      }
-      if (d < 7) bar1(nsw);
-    }
-    if (!bar1_any(changed, nsw)) break;
-  }
-}
-
-// bbox_sweeps with every value read from the buffers instead of registers:
-// a listed pixel's own word in the buffer a step reads is the value the
-// register form holds, so both give the same words.
-template <int S>
-__device__ __forceinline__ void bbox_sweeps_shared(int tid, int nsw, int nlist,
-                                                   const unsigned short* list,
-                                                   const unsigned char* nbr, unsigned* buf_a,
-                                                   unsigned* buf_b, int reach) {
-  for (int s = 0; s < reach; ++s) {
-    bool changed = false;
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      const unsigned* cur = (d & 1) ? buf_b : buf_a;
-      unsigned* nxt = (d & 1) ? buf_a : buf_b;
-      const int off = -(dir_dy(d) * S + dir_dx(d));
-      for (int k = tid; k < nlist; k += nsw) {
-        const int i = list[k];
-        unsigned v = cur[i];
-        if ((nbr[i] >> d) & 1u) {
-          const unsigned nv = __vminu4(v, cur[i + off]);
-          changed = changed || nv != v;
-          v = nv;
-        }
-        nxt[i] = v;
       }
       if (d < 7) bar1(nsw);
     }
@@ -524,9 +522,7 @@ __global__ void __launch_bounds__(Sh::kThreads)
   if (nlist > 0) {
     const int nsw = sweep_threads(nlist, NT);
     if (tid < nsw) {
-      if constexpr (!Sh::kRegSweeps)
-        bbox_sweeps_shared<S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, reach);
-      else if (nlist <= NT)
+      if (nlist <= NT)
         bbox_sweeps<1, S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, reach);
       else
         bbox_sweeps<Sh::kOwn, S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, reach);
@@ -668,6 +664,366 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
+// ---- The wide path: 13 to 32 sweeps, or a top-k of 65 to 128 ----
+
+// A bbox round's tile: 32x32 pixels with a 12 px halo (rounds of 4 sweeps:
+// measured faster on the H100 than halos of 24 and 36 px with rounds of 8
+// and 12, whose spans make every step longer; PERF.md, kernel A).  Its
+// extrema are 16-bit lanes relative to the span's origin less kOff (every
+// value is the coordinate of a pixel of the same label, within 2 x 32 px
+// of its own pixel): (xmin, ymin) and (0xFFFF - xmax, 0xFFFF - ymax), so a
+// step is two __vminu2 (one instruction each on sm_90, where __vminu4 is
+// six).
+struct WideBb {
+  static constexpr int T = kBbTile, H = kBbHalo, S = T + 2 * H, S2 = S * S, NT = kBbThreads;
+  static constexpr int kOwn = (S2 + NT - 1) / NT;  // span pixels a thread
+  static constexpr int kOff = 2 * kWideSweeps;
+  // the second sweep buffer (the labels first), the first sweep buffer
+  // (each with a dummy word), neighbour bits, the list
+  static constexpr int kSmem = (S2 + 1) * 8 * 2 + S2 * (1 + 2);
+};
+
+// A sums tile: 24x24 pixels with `sweeps` px of labels above and beside it
+// (88 tiles on a 192x256 crop: one wave on the SMs the 48 bbox tiles leave;
+// 16x16 tiles took two waves, 32x32 ones each took longer than a round).
+struct WideSum {
+  static constexpr int T = kSumTile, T2 = T * T, NT = kBbThreads;
+  static constexpr int kMaxRows = T + kWideSweeps, kMaxCols = T + 2 * kWideSweeps;
+  // labels, six sums a pixel, the foreground list, the roots' keys
+  static constexpr int kSmem = kMaxRows * kMaxCols * 4 + 6 * T2 * 4 + T2 * 2 + T2 * 8;
+  static_assert(kSmem <= WideBb::kSmem, "both kinds of block share one launch's shared memory");
+  static_assert(T2 <= NT, "one interior pixel a thread");
+};
+
+// Tiles of `t` px over an h x w frame.
+__host__ __device__ __forceinline__ int tiles_x(int w, int t) { return (w + t - 1) / t; }
+__host__ __device__ __forceinline__ int tiles_of(int h, int w, int t) {
+  return tiles_x(w, t) * ((h + t - 1) / t);
+}
+
+// bbox_sweeps on the wide path's 16x2 words, R listed pixels a thread,
+// without branches: a slot past the list points at the dummy word S2 (no
+// neighbour bits, written and never read), a neighbour is loaded only
+// where its bit is set, and the change test is made once a sweep.
+template <int R, int S>
+__device__ __forceinline__ void bbox_sweeps_u16(int tid, int nsw, int nlist,
+                                                const unsigned short* list,
+                                                const unsigned char* nbr, uint2* buf_a,
+                                                uint2* buf_b, int reach) {
+  unsigned ent[R];
+  uint2 val[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = tid + r * nsw;
+    const int i = k < nlist ? list[k] : S * S;
+    ent[r] = (unsigned)i | (k < nlist ? (unsigned)nbr[i] << 16 : 0u);
+    val[r] = buf_a[i];
+  }
+  for (int s = 0; s < reach; ++s) {
+    uint2 start[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) start[r] = val[r];
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      const uint2* cur = (d & 1) ? buf_b : buf_a;
+      uint2* nxt = (d & 1) ? buf_a : buf_b;
+      const int off = -(dir_dy(d) * S + dir_dx(d));
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = ent[r] & 0xFFFF;
+        if ((ent[r] >> (16 + d)) & 1u) {
+          const uint2 c = cur[i + off];
+          val[r] = make_uint2(__vminu2(val[r].x, c.x), __vminu2(val[r].y, c.y));
+        }
+        nxt[i] = val[r];
+      }
+      if (d < 7) bar1(nsw);
+    }
+    bool changed = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      changed = changed || val[r].x != start[r].x || val[r].y != start[r].y;
+    if (!bar1_any(changed, nsw)) break;
+  }
+}
+
+// One bbox round on tile `b`: `rsw` sweeps from the pixels' own coordinates
+// (state_in null) or from the last round's words (x - xmin, y - ymin,
+// xmax - x, ymax - y as bytes), into state_out as such words or, in the last
+// round (state_out null), into the four bbox maps.
+__device__ __forceinline__ void wide_bbox_tile(int b, const int* __restrict__ lab, int h, int w,
+                                               int rsw, const unsigned* __restrict__ state_in,
+                                               unsigned* __restrict__ state_out,
+                                               float* __restrict__ maps, unsigned char* smem) {
+  using Sh = WideBb;
+  constexpr int T = Sh::T, H = Sh::H, S = Sh::S, S2 = Sh::S2, NT = Sh::NT, kOff = Sh::kOff;
+  uint2* buf_b = reinterpret_cast<uint2*>(smem);
+  int* labb = reinterpret_cast<int*>(smem);  // the labels, before buf_b
+  uint2* buf_a = buf_b + S2 + 1;
+  unsigned char* nbr = reinterpret_cast<unsigned char*>(buf_a + S2 + 1);
+  unsigned short* list = reinterpret_cast<unsigned short*>(nbr + S2);
+  __shared__ int s_nlist;
+  const int by = b / tiles_x(w, T), bx = b % tiles_x(w, T);
+  const int oy = by * T - H, ox = bx * T - H;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) s_nlist = 0;
+  unsigned st[Sh::kOwn];  // the last round's words of this thread's span pixels
+#pragma unroll
+  for (int r = 0; r < Sh::kOwn; ++r) {
+    const int i = tid + r * NT;
+    const int gy = oy + i / S, gx = ox + i % S;
+    const bool inside = i < S2 && gy >= 0 && gy < h && gx >= 0 && gx < w;
+    const int l = inside ? lab[gy * w + gx] : 0;
+    st[r] = inside && state_in != nullptr ? state_in[gy * w + gx] : 0u;
+    // background biased to unique negatives; outside the frame 0 (no match)
+    if (i < S2) labb[i] = inside ? (l > 0 ? l : -(gy * w + gx + 1)) : 0;
+  }
+  __syncthreads();
+
+  // neighbour bits, the words (background all ones, which no foreground
+  // word is) and the list of pixels that can change
+#pragma unroll
+  for (int r = 0; r < Sh::kOwn; ++r) {
+    const int i = tid + r * NT;
+    unsigned bits = 0;
+    if (i < S2) {
+      const int ly = i / S, lx = i % S;
+      const int me = labb[i];
+      uint2 v = make_uint2(0xFFFFFFFFu, 0xFFFFFFFFu);
+      if (me > 0) {
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          const int sy = ly - dir_dy(d), sx = lx - dir_dx(d);
+          if (sy >= 0 && sy < S && sx >= 0 && sx < S && labb[sy * S + sx] == me) bits |= 1u << d;
+        }
+        const unsigned xr = lx + kOff, yr = ly + kOff;
+        const unsigned xmin = state_in ? xr - (st[r] & 0xFFu) : xr;
+        const unsigned ymin = state_in ? yr - ((st[r] >> 8) & 0xFFu) : yr;
+        const unsigned xmax = state_in ? xr + ((st[r] >> 16) & 0xFFu) : xr;
+        const unsigned ymax = state_in ? yr + (st[r] >> 24) : yr;
+        v = make_uint2(xmin | (ymin << 16), (0xFFFFu - xmax) | ((0xFFFFu - ymax) << 16));
+      }
+      nbr[i] = (unsigned char)bits;
+      buf_a[i] = v;
+    }
+    const unsigned ball = __ballot_sync(0xFFFFFFFFu, bits != 0);
+    int at = 0;
+    if (lane == 0 && ball) at = atomicAdd(&s_nlist, __popc(ball));
+    at = __shfl_sync(0xFFFFFFFFu, at, 0);
+    if (bits) list[at + __popc(ball & ((1u << lane) - 1u))] = (unsigned short)i;
+  }
+  __syncthreads();  // the labels are done with: their space becomes buf_b
+
+  // the sweeps; the final words are in buf_a
+  const int nlist = s_nlist;
+  if (nlist > 0) {
+    const int nsw = sweep_threads(nlist, NT);
+    if (tid < nsw) {
+      if (nlist <= NT)
+        bbox_sweeps_u16<1, S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, rsw);
+      else if (nlist <= 2 * NT)
+        bbox_sweeps_u16<2, S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, rsw);
+      else
+        bbox_sweeps_u16<Sh::kOwn, S>(tid, nsw, nlist, list, nbr, buf_a, buf_b, rsw);
+    }
+  }
+  __syncthreads();
+
+  for (int p = tid; p < T * T; p += NT) {
+    const int ty = p / T, tx = p % T;
+    const int gy = by * T + ty, gx = bx * T + tx;
+    if (gy >= h || gx >= w) continue;
+    const int o = gy * w + gx;
+    const unsigned xr = H + tx + kOff, yr = H + ty + kOff;
+    const uint2 word = buf_a[(H + ty) * S + H + tx];
+    const bool fg = word.x != 0xFFFFFFFFu;
+    const unsigned xmin = word.x & 0xFFFFu, ymin = word.x >> 16;
+    const unsigned xmax = 0xFFFFu - (word.y & 0xFFFFu), ymax = 0xFFFFu - (word.y >> 16);
+    if (state_out != nullptr) {
+      state_out[o] = fg ? (xr - xmin) | ((yr - ymin) << 8) | ((xmax - xr) << 16) |
+                              ((ymax - yr) << 24)
+                        : 0xFFFFFFFFu;
+    } else {
+      const int hw = h * w;
+      maps[3 * hw + o] = fg ? (float)(ox - kOff + (int)xmin) : 1e9f;
+      maps[4 * hw + o] = fg ? (float)(ox - kOff + (int)xmax) : -1e9f;
+      maps[5 * hw + o] = fg ? (float)(oy - kOff + (int)ymin) : 1e9f;
+      maps[6 * hw + o] = fg ? (float)(oy - kOff + (int)ymax) : -1e9f;
+    }
+  }
+}
+
+// The windowed sums of sums tile `b` (dy in [-reach, 0], dx in [-reach,
+// reach]) and its roots' keys: the tile's best min(roots, topk) keys go to
+// keys[] at a place taken from *key_count.  Each foreground pixel's window
+// is cut into its reach + 1 rows, spread over all the block's threads (the
+// row sums are integers, added with atomics in any order).
+__device__ __forceinline__ void wide_sums_tile(int b, const int* __restrict__ lab,
+                                               const float* __restrict__ prm, int h, int w,
+                                               int reach, int topk, float* __restrict__ maps,
+                                               unsigned long long* __restrict__ keys,
+                                               unsigned* __restrict__ key_count,
+                                               unsigned char* smem) {
+  using Sh = WideSum;
+  constexpr int T = Sh::T, T2 = Sh::T2, NT = Sh::NT;
+  int* slab = reinterpret_cast<int*>(smem);
+  int* acc = slab + Sh::kMaxRows * Sh::kMaxCols;  // cnt, sx, sy, sxx, syy, sxy: T2 each
+  unsigned short* fgl = reinterpret_cast<unsigned short*>(acc + 6 * T2);
+  unsigned long long* root_keys = reinterpret_cast<unsigned long long*>(fgl + T2);
+  __shared__ int s_nfg, s_nroots, s_base;
+  const int rows = T + reach, cols = T + 2 * reach;
+  const int y0 = (b / tiles_x(w, T)) * T, x0 = (b % tiles_x(w, T)) * T;
+  const int oy = y0 - reach, ox = x0 - reach;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) s_nfg = s_nroots = 0;
+  for (int i = tid; i < rows * cols; i += NT) {
+    const int gy = oy + i / cols, gx = ox + i % cols;
+    const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    const int l = inside ? lab[gy * w + gx] : 0;
+    slab[i] = inside ? (l > 0 ? l : -(gy * w + gx + 1)) : 0;
+  }
+  for (int i = tid; i < 6 * T2; i += NT) acc[i] = 0;
+  __syncthreads();
+  const int ty = tid / T, tx = tid % T;
+  const bool mine = tid < T2 && y0 + ty < h && x0 + tx < w;
+  const int me = mine ? slab[(reach + ty) * cols + reach + tx] : 0;
+  if (tid < T2) {
+    const bool f = me > 0;
+    const unsigned ball = __ballot_sync(0xFFFFFFFFu, f);
+    int at = 0;
+    if (lane == 0 && ball) at = atomicAdd(&s_nfg, __popc(ball));
+    at = __shfl_sync(0xFFFFFFFFu, at, 0);
+    if (f) fgl[at + __popc(ball & ((1u << lane) - 1u))] = (unsigned short)tid;
+  }
+  __syncthreads();
+
+  // Every term and partial sum is an integer below 2^24, so the float sums
+  // of the plain version are exact in any order: integer sums equal them.
+  const int nfg = s_nfg;
+  for (int it = tid; it < nfg * (reach + 1); it += NT) {
+    const int dyi = it / nfg, p = fgl[it - dyi * nfg];
+    const int dy = dyi - reach;
+    const int* centre = slab + (reach + p / T) * cols + reach + p % T;
+    const int* row = centre + dy * cols;
+    const int l = *centre;
+    int c = 0, sx = 0, sxx = 0;
+#pragma unroll 4
+    for (int dx = -reach; dx <= reach; ++dx) {
+      if (row[dx] == l) {
+        c += 1;
+        sx += dx;
+        sxx += dx * dx;
+      }
+    }
+    if (c > 0) {
+      atomicAdd(&acc[0 * T2 + p], c);
+      atomicAdd(&acc[1 * T2 + p], sx);
+      atomicAdd(&acc[2 * T2 + p], dy * c);
+      atomicAdd(&acc[3 * T2 + p], sxx);
+      atomicAdd(&acc[4 * T2 + p], dy * dy * c);
+      atomicAdd(&acc[5 * T2 + p], dy * sx);
+    }
+  }
+  __syncthreads();
+
+  // the six sum maps (background: count 1, every moment +0) and the roots' keys
+  if (mine) {
+    const int hw = h * w, o = (y0 + ty) * w + x0 + tx;
+    const bool fg = me > 0;
+    const float cnt = fg ? (float)acc[tid] : 1.0f;
+    maps[0 * hw + o] = cnt;
+    maps[1 * hw + o] = fg ? (float)acc[1 * T2 + tid] : 0.0f;
+    maps[2 * hw + o] = fg ? (float)acc[2 * T2 + tid] : 0.0f;
+    maps[7 * hw + o] = fg ? (float)acc[3 * T2 + tid] : 0.0f;
+    maps[8 * hw + o] = fg ? (float)acc[4 * T2 + tid] : 0.0f;
+    maps[9 * hw + o] = fg ? (float)acc[5 * T2 + tid] : 0.0f;
+    if (fg && me == o + 1) {  // a root: rank by the reference's score
+      const bool in_range = cnt >= prm[5] && cnt <= prm[6] && cnt > 0.0f;
+      const float score = in_range ? cnt + 1e6f : cnt;
+      root_keys[atomicAdd(&s_nroots, 1)] =
+          ((unsigned long long)__float_as_uint(score) << 32) | (0xFFFFFFFFull - (unsigned)o);
+    }
+  }
+  __syncthreads();
+  const int nroots = s_nroots;
+  if (tid == 0 && nroots > 0) s_base = (int)atomicAdd(key_count, (unsigned)min(nroots, topk));
+  __syncthreads();
+  for (int a = tid; a < nroots; a += NT) {
+    const unsigned long long key = root_keys[a];
+    int rank = 0;
+    for (int c = 0; c < nroots; ++c) rank += root_keys[c] > key;
+    if (rank < topk) keys[s_base + rank] = key;
+  }
+}
+
+// One launch of the wide stats: blocks [0, n_bb) take a bbox round on their
+// 32x32 tiles; with `sums`, the blocks after them take the windowed sums and
+// the roots' keys of the sums tiles.
+__global__ void __launch_bounds__(kBbThreads, 1)
+    wide_stats_kernel(const int* __restrict__ lab, const float* __restrict__ prm, int h, int w,
+                      int sweeps, int rsw, const unsigned* __restrict__ state_in,
+                      unsigned* __restrict__ state_out, float* __restrict__ maps, int n_bb,
+                      int topk, unsigned long long* __restrict__ keys,
+                      unsigned* __restrict__ key_count) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if ((int)blockIdx.x < n_bb)
+    wide_bbox_tile(blockIdx.x, lab, h, w, rsw, state_in, state_out, maps, smem_raw);
+  else
+    wide_sums_tile(blockIdx.x - n_bb, lab, prm, h, w, sweeps, topk, maps, keys, key_count,
+                   smem_raw);
+}
+
+// The wide path's top-k: the best roots among the `*key_count` keys (every
+// root scores > 0, every key is distinct), by bitonic sorts of at most
+// kMergeSort keys in shared memory: each pass sorts the best keys so far
+// with the next ones, descending, and keeps the first topk.  Then the
+// lowest flat indices that are not roots (score 0) fill the slots left.
+__global__ void __launch_bounds__(kMergeSortThreads)
+    roots_merge_kernel(const unsigned long long* __restrict__ keys,
+                       const unsigned* __restrict__ key_count, const int* __restrict__ lab,
+                       int hw, int topk, int* __restrict__ out) {
+  constexpr int NT = kMergeSortThreads;
+  __shared__ unsigned long long buf[kMergeSort];
+  const int n = (int)*key_count;
+  const int tid = threadIdx.x, lane = tid & 31;
+  int kept = 0;  // buf[0, kept): the best keys so far, descending
+  for (int next = 0; next < n || next == 0;) {
+    const int take = min(n - next, kMergeSort - kept);
+    int p = 2;  // a power of two >= kept + take
+    while (p < kept + take) p <<= 1;
+    for (int i = kept + tid; i < p; i += NT) buf[i] = i - kept < take ? keys[next + i - kept] : 0;
+    __syncthreads();
+    for (int size = 2; size <= p; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int i = tid; i < p / 2; i += NT) {
+          const int lo = ((i & ~(stride - 1)) << 1) | (i & (stride - 1)), hi = lo + stride;
+          const unsigned long long a = buf[lo], b = buf[hi];
+          if ((a < b) == ((lo & size) == 0)) {  // descending runs where (lo & size) == 0
+            buf[lo] = b;
+            buf[hi] = a;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    kept = min(kept + take, topk);
+    next += take;
+    if (n == 0) break;
+  }
+  for (int t = tid; t < kept; t += NT)
+    out[t] = (int)(0xFFFFFFFFu - (unsigned)(buf[t] & 0xFFFFFFFFull));
+  if (tid >= 32) return;
+  const int need = topk - kept;
+  for (int base = 0, filled = 0; filled < need; base += 32) {
+    const int i = base + lane;
+    const bool other = i < hw && lab[i] != i + 1;
+    const unsigned ball = __ballot_sync(0xFFFFFFFFu, other);
+    const int slot = filled + __popc(ball & ((1u << lane) - 1u));
+    if (other && slot < need) out[kept + slot] = i;
+    filled += __popc(ball);
+  }
+}
+
 template <class Sh>
 int n_tiles(int h, int w) {
   constexpr int T = Sh::T;
@@ -698,6 +1054,65 @@ cudaError_t launch_stats(const int* lab, const float* prm, int h, int w, int swe
                         w, sweeps, topk, maps, tile_keys);
 }
 
+// The wide path's scratch: the key count, the compact key list (topk keys
+// for each sums tile) and two (h, w) planes for the rounds' labels and words.
+struct WideScratch {
+  unsigned* count;
+  unsigned long long* keys;
+  unsigned* plane[2];
+  WideScratch(void* base, int h, int w, int topk) {
+    unsigned char* p = static_cast<unsigned char*>(base);
+    count = reinterpret_cast<unsigned*>(p);
+    keys = reinterpret_cast<unsigned long long*>(p + 16);
+    plane[0] = reinterpret_cast<unsigned*>(keys + (size_t)tiles_of(h, w, kSumTile) * topk);
+    plane[1] = plane[0] + (size_t)h * w;
+  }
+  static size_t bytes(int h, int w, int topk) {
+    return 16 + (size_t)tiles_of(h, w, kSumTile) * topk * 8 + 2 * (size_t)h * w * 4;
+  }
+};
+
+bool wide_shape(int sweeps, int topk) { return sweeps > kMaxSweeps || topk > kMaxTopk; }
+
+// The wide path after the blur (see the head of this file): the label
+// rounds, the bbox rounds (the first with the sums tiles), the merge.
+cudaError_t launch_wide(const float* blurred, const float* prm, int h, int w, int sweeps,
+                        int topk, int* lab, float* maps, void* scratch, int* topk_out,
+                        cudaStream_t st) {
+  WideScratch sc(scratch, h, w, topk);
+  const dim3 lab_grid(tiles_x(w, kLabTile), (h + kLabTile - 1) / kLabTile);
+  const int n_lab = sweeps == 0 ? 1 : (sweeps + kLabHalo - 1) / kLabHalo;
+  const int* src = nullptr;
+  for (int r = 0; r < n_lab; ++r) {  // ping-pong with plane 0, the last round into lab
+    const int sw = std::min(kLabHalo, sweeps - r * kLabHalo);
+    int* dst = (n_lab - 1 - r) % 2 == 0 ? lab : reinterpret_cast<int*>(sc.plane[0]);
+    if (r == 0)
+      label_round_kernel<float><<<lab_grid, kLabRoundThreads, 0, st>>>(blurred, h, w, sw, dst);
+    else
+      label_round_kernel<int><<<lab_grid, kLabRoundThreads, 0, st>>>(src, h, w, sw, dst);
+    src = dst;
+  }
+  cudaError_t e = cudaMemsetAsync(sc.count, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return e;
+  const bool one = 2 * sweeps <= kBbHalo;  // the label argument: one round is exact
+  const int n_rounds = one ? 1 : (sweeps + kBbRoundSweeps - 1) / kBbRoundSweeps;
+  const int n_bb = tiles_of(h, w, kBbTile);
+  static bool ready = false;
+  const unsigned* in = nullptr;
+  for (int r = 0; r < n_rounds; ++r) {
+    const int rsw = one ? sweeps : std::min(kBbRoundSweeps, sweeps - r * kBbRoundSweeps);
+    unsigned* out = r + 1 == n_rounds ? nullptr : sc.plane[r % 2];
+    const int grid = n_bb + (r == 0 ? tiles_of(h, w, kSumTile) : 0);
+    e = launch_dynamic(wide_stats_kernel, ready, WideBb::kSmem, dim3(grid), kBbThreads, st, lab,
+                       prm, h, w, sweeps, rsw, in, out, maps, n_bb, topk, sc.keys, sc.count);
+    if (e != cudaSuccess) return e;
+    in = out;
+  }
+  roots_merge_kernel<<<1, kMergeSortThreads, 0, st>>>(sc.keys, sc.count, lab, h * w, topk,
+                                                        topk_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -712,47 +1127,38 @@ int pfmpe_threshold_blur(const float* img, const float* prm, int ntaps, int h, i
   return (int)cudaGetLastError();
 }
 
-// The stats tile of a sweep count (tile_keys holds n_tiles * topk keys).
-int pfmpe_detect_stats_tile(int sweeps) {
-  return sweeps <= kMaxSweeps ? StatsShape::T : StatsWideShape::T;
+// Bytes of scratch `pfmpe_detect_stats` needs for these shapes.
+int pfmpe_detect_stats_scratch(int h, int w, int sweeps, int topk) {
+  if (wide_shape(sweeps, topk)) return (int)WideScratch::bytes(h, w, topk);
+  return n_tiles<StatsShape>(h, w) * topk * 8;
 }
 
-// blurred: (h, w) scratch; lab: (h, w) int32; maps: (10, h, w);
-// tile_keys: (tiles * topk,) scratch, tiles = ceil(h / T) * ceil(w / T) with
-// T = pfmpe_detect_stats_tile(sweeps); topk_out: (topk,).  0 <= sweeps <= 32,
-// 1 <= topk <= min(128, h * w).
+// blurred: (h, w) scratch; lab: (h, w) int32; maps: (10, h, w); scratch:
+// pfmpe_detect_stats_scratch(h, w, sweeps, topk) bytes, 16-byte aligned;
+// topk_out: (topk,).  0 <= sweeps <= 32, 1 <= topk <= min(128, h * w): up
+// to 12 sweeps and a top-k of up to 64 run the default shapes, the rest the
+// wide path.
 int pfmpe_detect_stats(const float* img, const float* prm, int ntaps, int h, int w, int active,
-                       int sweeps, int topk, float* blurred, int* lab, float* maps,
-                       unsigned long long* tile_keys, int* topk_out, void* stream) {
+                       int sweeps, int topk, float* blurred, int* lab, float* maps, void* scratch,
+                       int* topk_out, void* stream) {
   if (ntaps < 1 || ntaps > kMaxTaps || sweeps < 0 || sweeps > kWideSweeps || topk < 1 ||
       topk > kWideTopk || (long long)h * w < topk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool wide = sweeps > kMaxSweeps;
   {
     const dim3 block(kBlurX, kBlurY);
     const dim3 grid((w + kBlurX - 1) / kBlurX, (h + kBlurY - 1) / kBlurY);
     threshold_blur_kernel<<<grid, block, 0, st>>>(img, prm, ntaps, h, w, active, blurred);
   }
+  if (wide_shape(sweeps, topk))
+    return (int)launch_wide(blurred, prm, h, w, sweeps, topk, lab, maps, scratch, topk_out, st);
+  unsigned long long* tile_keys = static_cast<unsigned long long*>(scratch);
   const dim3 lab_grid((w + kLabTile - 1) / kLabTile, (h + kLabTile - 1) / kLabTile);
-  cudaError_t e;
-  if (!wide) {
-    label_kernel<<<lab_grid, kLabThreads, 0, st>>>(blurred, h, w, sweeps, lab);
-    e = launch_stats<StatsShape>(lab, prm, h, w, sweeps, topk, maps, tile_keys, st);
-  } else {
-    using L = LabShape<kLabWideHalo, kLabWideThreads>;
-    static bool ready = false;
-    e = launch_dynamic(label_wide_kernel, ready, L::kSmem, lab_grid, kLabWideThreads, st, blurred,
-                       h, w, sweeps, lab);
-    if (e == cudaSuccess)
-      e = launch_stats<StatsWideShape>(lab, prm, h, w, sweeps, topk, maps, tile_keys, st);
-  }
+  label_kernel<<<lab_grid, kLabThreads, 0, st>>>(blurred, h, w, sweeps, lab);
+  const cudaError_t e = launch_stats<StatsShape>(lab, prm, h, w, sweeps, topk, maps, tile_keys, st);
   if (e != cudaSuccess) return (int)e;
-  const int n_keys = (wide ? n_tiles<StatsWideShape>(h, w) : n_tiles<StatsShape>(h, w)) * topk;
-  if (topk <= kMaxTopk)
-    topk_merge_kernel<kMaxTopk><<<1, kMergeThreads, 0, st>>>(tile_keys, n_keys, topk, topk_out);
-  else
-    topk_merge_kernel<kWideTopk><<<1, kMergeThreads, 0, st>>>(tile_keys, n_keys, topk, topk_out);
+  topk_merge_kernel<kMaxTopk><<<1, kMergeThreads, 0, st>>>(
+      tile_keys, n_tiles<StatsShape>(h, w) * topk, topk, topk_out);
   return (int)cudaGetLastError();
 }
 

@@ -36,9 +36,10 @@
 // this one takes every 1 <= K <= 128 and 1 <= M <= 32.  K = 16 with
 // 3 <= M <= 8 (the tracker's defaults) keeps its specialised, fully
 // unrolled instantiations; every other shape runs the wide form
-// (pf_common.cuh: M rounded up to a bucket of 8, 16 or 32, K a loop over
-// the detections staged in shared memory), whose greedy work grows as
-// 9 M K + 2 M^2 a particle and bounds it by operations at large M K.
+// (pf_common.cuh: the detections listed real first once a block, a row's
+// masked slots walked only when they could still hold its minimum, rows
+// four at a time with their minima in shared memory), whose greedy work
+// grows as 9 M K_real + 2 M^2 a particle.
 
 #include "pf_common.cuh"
 
@@ -46,15 +47,16 @@ namespace {
 
 // params: lr[32] | pin[32] | prop[12] | scal[8] | mark[4M] | dets[3K] | downg[M]
 // K > 0: the specialised form (M markers, K detections); K = 0: the wide
-// form, runtime m <= M (the bucket) markers and k <= kMaxK detections.
+// form, runtime m <= kMaxM markers and k <= kMaxK detections.
 template <int M, int K, bool WANT_PAIRS>
 __global__ void __launch_bounds__(kPfThreads) pf_step_kernel(
     const float* __restrict__ bank, const float* __restrict__ prm, int n, uint32_t kr0,
     uint32_t kr1, uint32_t kt0, uint32_t kt1, int lane_offset, int n_total,
     float* __restrict__ out, float* __restrict__ wout, int* __restrict__ pairs,
     int* __restrict__ ncorr, int m_rt, int k_rt) {
-  __shared__ float sprm[76 + n_weight_params(M, K > 0 ? K : kMaxK)];
+  __shared__ float sprm[76 + n_weight_params(K > 0 ? M : kMaxM, K > 0 ? K : kMaxK)];
   stage(sprm, prm, K > 0 ? 76 + n_weight_params(M, K) : 76 + n_weight_params(m_rt, k_rt));
+  if constexpr (K == 0) stage_wide(wide_dets(), sprm + 76, m_rt, k_rt);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   const float* lr = sprm;
@@ -145,8 +147,8 @@ __global__ void __launch_bounds__(kPfThreads) pf_step_kernel(
   if constexpr (K > 0)
     wout[lane] = greedy_weight<M, K, WANT_PAIRS>(rows, sprm + 76, lane, n, pairs, ncorr);
   else
-    wout[lane] = greedy_weight_wide<M, WANT_PAIRS>(rows, sprm + 76, m_rt, k_rt, lane, n, pairs,
-                                                   ncorr);
+    wout[lane] = greedy_weight_wide<WANT_PAIRS>(rows, sprm + 76, wide_dets(), m_rt, k_rt, lane, n,
+                                                pairs, ncorr);
 }
 
 template <int M, int K, bool WANT_PAIRS>
@@ -199,10 +201,6 @@ extern "C" int pfmpe_pf_step(const float* bank, const float* prm, int n, int m, 
       default: break;
     }
   }
-  switch (marker_bucket(m)) {  // the wide form
-    case 8: PFMPE_CASE(8, 0)
-    case 16: PFMPE_CASE(16, 0)
-    default: PFMPE_CASE(32, 0)
-  }
+  PFMPE_CASE(0, 0)  // the wide form
 #undef PFMPE_CASE
 }

@@ -30,8 +30,8 @@
 namespace {
 
 // wprm: scal[8] | mark[4M] | dets[3K] | downg[M] (pf_common.cuh).  K > 0:
-// the specialised form; K = 0: the wide form, runtime m <= M (the bucket)
-// markers and k <= kMaxK detections.
+// the specialised form; K = 0: the wide form, runtime m <= kMaxM markers and
+// k <= kMaxK detections.
 template <int M, int K>
 __global__ void __launch_bounds__(kPfThreads) pf_weight_kernel(const float* __restrict__ bank,
                                                                const float* __restrict__ wprm,
@@ -39,8 +39,9 @@ __global__ void __launch_bounds__(kPfThreads) pf_weight_kernel(const float* __re
                                                                int* __restrict__ pairs,
                                                                int* __restrict__ ncorr, int m_rt,
                                                                int k_rt) {
-  __shared__ float sprm[n_weight_params(M, K > 0 ? K : kMaxK)];
+  __shared__ float sprm[n_weight_params(K > 0 ? M : kMaxM, K > 0 ? K : kMaxK)];
   stage(sprm, wprm, K > 0 ? n_weight_params(M, K) : n_weight_params(m_rt, k_rt));
+  if constexpr (K == 0) stage_wide(wide_dets(), sprm, m_rt, k_rt);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   float rows[12];
@@ -49,7 +50,8 @@ __global__ void __launch_bounds__(kPfThreads) pf_weight_kernel(const float* __re
   if constexpr (K > 0)
     wout[lane] = greedy_weight<M, K, true>(rows, sprm, lane, n, pairs, ncorr);
   else
-    wout[lane] = greedy_weight_wide<M, true>(rows, sprm, m_rt, k_rt, lane, n, pairs, ncorr);
+    wout[lane] = greedy_weight_wide<true>(rows, sprm, wide_dets(), m_rt, k_rt, lane, n, pairs,
+                                          ncorr);
 }
 
 template <int M, int K>
@@ -80,9 +82,5 @@ extern "C" int pfmpe_pf_weight(const float* bank, const float* wprm, int n, int 
       default: break;
     }
   }
-  switch (marker_bucket(m)) {  // the wide form
-    case 8: return (int)launch_m<8, 0>(bank, wprm, n, m, k, w, pairs, ncorr, st);
-    case 16: return (int)launch_m<16, 0>(bank, wprm, n, m, k, w, pairs, ncorr, st);
-    default: return (int)launch_m<32, 0>(bank, wprm, n, m, k, w, pairs, ncorr, st);
-  }
+  return (int)launch_m<0, 0>(bank, wprm, n, m, k, w, pairs, ncorr, st);  // the wide form
 }

@@ -23,7 +23,8 @@ from ..utils import cuda_lib
 N_MAPS = 10  # cnt, sx, sy, xmin, xmax, ymin, ymax, sxx, syy, sxy
 # What kernel A's `detect_stats` takes on the card (csrc/detect.cu): every
 # 0 <= sweeps <= MAX_SWEEPS and 1 <= topk <= min(MAX_TOPK, pixels).  Up to 12
-# sweeps run the default shapes, 13 to 32 the wide ones.
+# sweeps with a top-k of up to 64 run the default shapes, the rest the wide
+# path (label and bbox rounds, more launches than the default's four).
 MAX_SWEEPS = 32
 MAX_TOPK = 128
 
@@ -198,16 +199,15 @@ def detect_stats(img: torch.Tensor, prm: torch.Tensor, ntaps: int, active: bool 
     h, w = img.shape
     check_card_shape(sweeps, topk, h * w)
     lib = cuda_lib.library()
-    tile = lib.pfmpe_detect_stats_tile(sweeps)  # the per-tile key scratch is sized by it
-    n_tiles = -(-h // tile) * -(-w // tile)
     blurred = torch.empty_like(img)
     lab = torch.empty((h, w), dtype=torch.int32, device=img.device)
     maps = torch.empty((N_MAPS, h, w), dtype=torch.float32, device=img.device)
-    tile_keys = torch.empty((n_tiles * topk,), dtype=torch.int64, device=img.device)
+    scratch = torch.empty((lib.pfmpe_detect_stats_scratch(h, w, sweeps, topk),), dtype=torch.uint8,
+                          device=img.device)
     top = torch.empty((topk,), dtype=torch.int32, device=img.device)
     code = lib.pfmpe_detect_stats(
         img.data_ptr(), prm.data_ptr(), ntaps, h, w, int(active), sweeps, topk,
-        blurred.data_ptr(), lab.data_ptr(), maps.data_ptr(), tile_keys.data_ptr(),
+        blurred.data_ptr(), lab.data_ptr(), maps.data_ptr(), scratch.data_ptr(),
         top.data_ptr(), cuda_lib.stream_ptr(img),
     )
     detect_stats.launches += 1

@@ -29,12 +29,14 @@ pytestmark = pytest.mark.cuda
 
 
 # Shapes beyond the tracker's defaults (K = 16, M = 5, 12 sweeps, top-k 16)
-# that the card takes, every bucket of kernels B, E, D and A among them
+# that the card takes: every form of kernels B, E, D and A and the edges of
+# the wide ones -- K and M off a group of four rows, sweep counts off a
+# round of 8 bbox and 12 label sweeps, top-k on both sides of 64
 # (chip_smoke.py's [shapes] phase runs the same grid).
-SHAPE_K = (4, 12, 16, 32, 64, 128)
-SHAPE_M = (1, 3, 5, 8, 9, 16, 32)
-SHAPE_SWEEPS = (0, 4, 12, 20)
-SHAPE_TOPK = (16, 64, 100)
+SHAPE_K = (1, 4, 12, 16, 17, 32, 64, 127, 128)
+SHAPE_M = (1, 3, 5, 8, 9, 10, 16, 31, 32)
+SHAPE_SWEEPS = (0, 4, 12, 13, 20, 24, 25)
+SHAPE_TOPK = (16, 64, 65, 100)
 
 
 @pytest.fixture
@@ -147,10 +149,10 @@ def _large_blob_image(rng, h, w):
 @pytest.mark.parametrize("sweeps", SHAPE_SWEEPS)
 @pytest.mark.parametrize("shape", [(192, 256), (100, 90)])
 def test_detect_stats_every_shape_exact(dev, shape, sweeps, topk):
-    """Kernel A at every sweep count and top-k bucket (0, 4 and 12 sweeps on
-    the default shapes, 20 on the wide ones; top-k 16 and 64 on the default
-    merge, 100 on the wide one) against the plain version on
-    `_large_blob_image`: labels, maps and top-k equal."""
+    """Kernel A at every sweep count and top-k of the grid (up to 12 sweeps
+    and top-64 on the default shapes, the rest on the wide path's rounds)
+    against the plain version on `_large_blob_image`: labels, maps and
+    top-k equal."""
     rng = np.random.default_rng(sweeps + topk)
     h, w = shape
     img = _large_blob_image(rng, h, w).to(dev)
@@ -170,6 +172,58 @@ def test_detect_stats_every_shape_exact(dev, shape, sweeps, topk):
 def test_detect_stats_wide_ends_exact(dev, sweeps, topk):
     """Kernel A at the ends of the wide shapes' range, the main crop's shape."""
     test_detect_stats_every_shape_exact(dev, (192, 256), sweeps, topk)
+
+
+def _band_image(h, w):
+    """Dots every 6 px (one area each) with a band across the whole width
+    and a column down the whole height, both over the seams of every tile
+    (x and y at multiples of 16 and 32), whose labels still change at the
+    32nd sweep."""
+    img = np.zeros((h, w), np.float32)
+    img[2:h - 3:6, 2:w - 3:6] = 255.0
+    img[h // 2 - 1:h // 2 + 2, :] = 255.0
+    img[:, 63:66] = 255.0
+    return torch.from_numpy(img)
+
+
+@pytest.mark.parametrize("topk", [16, 65, 128])
+@pytest.mark.parametrize("sweeps", [13, 24, 25, 32])
+def test_detect_stats_wide_band_exact(dev, sweeps, topk):
+    """The wide path's rounds on components that cross every tile seam and
+    need the last sweep (`_band_image`, 192x256), with more components
+    than the top-k."""
+    h, w = 192, 256
+    img = _band_image(h, w).to(dev)
+    prm = dk.make_params([0.0, 0.0, float(w), float(h)], 240.0, 8.0, 160.0, 0.6, dev)
+    got = dk.detect_stats(img, prm, 5, True, sweeps, topk)
+    want = dk.detect_stats_plain(img, prm, 5, True, sweeps, topk)
+    torch.cuda.synchronize()
+    fg = dk.threshold_blur_plain(img, prm, 5, True) > 1e-3
+    assert not torch.equal(dk.label_sweeps(fg, sweeps - 1), want[0])  # the last sweep counts
+    roots = int((want[0] == torch.arange(1, h * w + 1, device=dev).reshape(h, w)).sum())
+    assert roots > topk
+    assert torch.equal(got[0], want[0])
+    for i in range(dk.N_MAPS):
+        assert torch.equal(got[1][i], want[1][i]), f"map {i}"
+    assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
+
+
+@pytest.mark.parametrize("topk", [65, 128])
+@pytest.mark.parametrize("shape", [(192, 256), (61, 200)])
+def test_detect_stats_wide_topk_few_roots_exact(dev, shape, topk):
+    """The wide merge on frames with fewer components than the top-k: the
+    roots by rank, then the lowest flat indices that are not roots."""
+    rng = np.random.default_rng(topk)
+    h, w = shape
+    img = _image(rng, h, w).to(dev)
+    prm = dk.make_params([0.0, 0.0, float(w), float(h)], 240.0, 8.0, 160.0, 0.6, dev)
+    got = dk.detect_stats(img, prm, 5, True, 12, topk)
+    want = dk.detect_stats_plain(img, prm, 5, True, 12, topk)
+    torch.cuda.synchronize()
+    roots = int((want[0] == torch.arange(1, h * w + 1, device=dev).reshape(h, w)).sum())
+    assert 0 < roots < topk
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
 
 
 def _pf_inputs(dev, n, rng, cam_move_inv=None):
@@ -374,6 +428,57 @@ def test_pf_kernels_every_shape_exact(dev, m, k):
 def test_greedy_edge_cases_wide_exact(dev, case, m, k):
     """`greedy_edge_lanes` at the wide form's shapes, bit for bit."""
     _check_pf_kernels(*_card_params(dev, *greedy_edge_lanes(case, m, k, 1029)), m, k)
+
+
+def split_lanes(m, k, n=1029, seed=0, odd=None):
+    """`shape_lanes` where the wide form's two lists of detections tie: the
+    slots are laid out as masked exact copies of the first real detections,
+    then the real ones, then the other masked slots, so a masked copy has
+    the lower k; tol_pf = inf, so masked cells are selected once the real
+    ones are retired; and lanes 5-8 sit where every cell overflows to inf
+    (a row's minimum reaches the masked slots' bound and ties across both
+    lists).  `odd` = (slot, x, mask term) sets one slot to values outside
+    the real / masked split (an infinite x, a mask term of 1 or -1)."""
+    bank, a, gt = shape_lanes(m, k, n, seed)
+    real = np.flatnonzero(a["det_mask"])
+    masked = np.flatnonzero(~a["det_mask"])
+    n_copy = min(len(real), len(masked))
+    xy = a["det_xy"]
+    det_xy = np.concatenate([xy[real[:n_copy]], xy[real], xy[masked[n_copy:]]])
+    det_mask = np.arange(k) >= n_copy
+    det_mask[n_copy + len(real):] = False
+    a = dict(a, det_xy=det_xy, det_mask=det_mask, tol_pf=float("inf"))
+    far = gt.copy()
+    far[:3, 3] = (3e19, -3e19, 1.0)
+    bank[:, 5:9] = far.reshape(16, 1)
+    if odd is not None:
+        slot, x, big = odd
+        a["det_xy"][slot, 0] = x
+        a["det_big"] = (slot, big)
+    return bank, a, gt
+
+
+def _split_params(dev, bank, a, gt):
+    """`_card_params`, with a["det_big"] = (slot, mask term) written into
+    the packed parameters where given."""
+    big = a.pop("det_big", None)
+    bank_t, prm = _card_params(dev, bank, a, gt)
+    if big is not None:
+        m, k = len(a["marker_mask"]), len(a["det_mask"])
+        prm[76 + 8 + 4 * m + 2 * k + big[0]] = big[1]
+    return bank_t, prm
+
+
+@pytest.mark.parametrize("odd", [None, (0, float("inf"), 0.0), (1, 30.0, 1.0), (2, 30.0, -1.0)])
+@pytest.mark.parametrize("m,k", [(5, 32), (9, 17), (10, 127), (31, 64)])
+def test_greedy_wide_split_ties_exact(dev, m, k, odd):
+    """Kernels E and B (both variants) where the wide form's real and
+    masked detections tie (`split_lanes`), and on detections outside the
+    real / masked split (an infinite x, mask terms 1 and -1), bit for bit."""
+    if odd is not None and odd[0] >= k:
+        pytest.skip("no such slot")
+    n_corr = _check_pf_kernels(*_split_params(dev, *split_lanes(m, k, odd=odd)), m, k)
+    assert int(n_corr.max()) >= min(m - 1, k)
 
 
 @pytest.mark.parametrize("n", [4099, 45])
