@@ -40,11 +40,12 @@
 //     Between rounds a pixel's extrema travel as one 32-bit word of bytes
 //     relative to the pixel (each lies within 2 x 32 px of it);
 //   * windowed sums: a pixel's sums need the final labels within `sweeps`
-//     px and nothing else, so blocks of a second kind in the first bbox round's
-//     launch stage a 24x24 tile with that reach above and beside it, split
-//     the foreground pixels' windows into rows over all 1024 threads and add
-//     the rows' integer sums with shared-memory atomics.  They also append
-//     their tile's best roots' keys to one compact list;
+//     px and nothing else, so blocks of a second kind beside the first
+//     bbox rounds' (one wave of tiles in each) stage a 16x16 tile with
+//     that reach above and beside it, split the foreground pixels' windows
+//     into runs of rows over all 1024 threads and add the integer sums
+//     with shared-memory atomics.  They also append their tile's best
+//     roots' keys to one compact list;
 //   * top-k: one block takes the top-k of that list (the roots, which all
 //     score > 0) and fills the rest with the lowest flat indices that are
 //     not roots (score 0).
@@ -100,7 +101,7 @@ constexpr int kWideTopk = 128;   // and top-k
 constexpr int kLabRoundThreads = 1024;
 constexpr int kBbTile = 32, kBbHalo = 12, kBbThreads = 1024;
 constexpr int kBbRoundSweeps = kBbHalo / 3;  // a value moves at most 3 px a sweep
-constexpr int kSumTile = 24;
+constexpr int kSumTile = 16;
 constexpr int kMergeSort = 4096, kMergeSortThreads = 256;  // the wide merge's sorts
 constexpr int kMergeThreads = 256;
 constexpr int kMergeHeld = 8;  // keys a lane of the merge holds in registers
@@ -683,9 +684,11 @@ struct WideBb {
   static constexpr int kSmem = (S2 + 1) * 8 * 2 + S2 * (1 + 2);
 };
 
-// A sums tile: 24x24 pixels with `sweeps` px of labels above and beside it
-// (88 tiles on a 192x256 crop: one wave on the SMs the 48 bbox tiles leave;
-// 16x16 tiles took two waves, 32x32 ones each took longer than a round).
+// A sums tile: 16x16 pixels with `sweeps` px of labels above and beside it.
+// The tiles are shared out over the first bbox rounds, as many in a round
+// as there are SMs beside the bbox tiles, so each of those launches is one
+// wave (all of them in the first round took two waves beside it, and
+// tiles of 24 and 32 px took longer than a round).
 struct WideSum {
   static constexpr int T = kSumTile, T2 = T * T, NT = kBbThreads;
   static constexpr int kMaxRows = T + kWideSweeps, kMaxCols = T + 2 * kWideSweeps;
@@ -856,8 +859,8 @@ __device__ __forceinline__ void wide_bbox_tile(int b, const int* __restrict__ la
 // The windowed sums of sums tile `b` (dy in [-reach, 0], dx in [-reach,
 // reach]) and its roots' keys: the tile's best min(roots, topk) keys go to
 // keys[] at a place taken from *key_count.  Each foreground pixel's window
-// is cut into its reach + 1 rows, spread over all the block's threads (the
-// row sums are integers, added with atomics in any order).
+// is cut into runs of its reach + 1 rows, spread over all the block's
+// threads (the sums are integers, added with atomics in any order).
 __device__ __forceinline__ void wide_sums_tile(int b, const int* __restrict__ lab,
                                                const float* __restrict__ prm, int h, int w,
                                                int reach, int topk, float* __restrict__ maps,
@@ -900,28 +903,41 @@ __device__ __forceinline__ void wide_sums_tile(int b, const int* __restrict__ la
   // Every term and partial sum is an integer below 2^24, so the float sums
   // of the plain version are exact in any order: integer sums equal them.
   const int nfg = s_nfg;
-  for (int it = tid; it < nfg * (reach + 1); it += NT) {
-    const int dyi = it / nfg, p = fgl[it - dyi * nfg];
-    const int dy = dyi - reach;
+  // a work item: `run` consecutive window rows of one pixel, as many items
+  // as threads where there are enough rows (fewer atomics than one a row)
+  const int run = max(1, (nfg * (reach + 1) + NT - 1) / NT);
+  const int runs = (reach + 1 + run - 1) / run;
+  for (int it = tid; it < nfg * runs; it += NT) {
+    const int q = it / nfg, p = fgl[it - q * nfg];
     const int* centre = slab + (reach + p / T) * cols + reach + p % T;
-    const int* row = centre + dy * cols;
     const int l = *centre;
-    int c = 0, sx = 0, sxx = 0;
+    int c = 0, sx = 0, sy = 0, sxx = 0, syy = 0, sxy = 0;
+    for (int dyi = q * run; dyi < min((q + 1) * run, reach + 1); ++dyi) {
+      const int dy = dyi - reach;
+      const int* row = centre + dy * cols;
+      int rc = 0, rx = 0, rxx = 0;
 #pragma unroll 4
-    for (int dx = -reach; dx <= reach; ++dx) {
-      if (row[dx] == l) {
-        c += 1;
-        sx += dx;
-        sxx += dx * dx;
+      for (int dx = -reach; dx <= reach; ++dx) {
+        if (row[dx] == l) {
+          rc += 1;
+          rx += dx;
+          rxx += dx * dx;
+        }
       }
+      c += rc;
+      sx += rx;
+      sy += dy * rc;
+      sxx += rxx;
+      syy += dy * dy * rc;
+      sxy += dy * rx;
     }
     if (c > 0) {
       atomicAdd(&acc[0 * T2 + p], c);
       atomicAdd(&acc[1 * T2 + p], sx);
-      atomicAdd(&acc[2 * T2 + p], dy * c);
+      atomicAdd(&acc[2 * T2 + p], sy);
       atomicAdd(&acc[3 * T2 + p], sxx);
-      atomicAdd(&acc[4 * T2 + p], dy * dy * c);
-      atomicAdd(&acc[5 * T2 + p], dy * sx);
+      atomicAdd(&acc[4 * T2 + p], syy);
+      atomicAdd(&acc[5 * T2 + p], sxy);
     }
   }
   __syncthreads();
@@ -957,20 +973,20 @@ __device__ __forceinline__ void wide_sums_tile(int b, const int* __restrict__ la
 }
 
 // One launch of the wide stats: blocks [0, n_bb) take a bbox round on their
-// 32x32 tiles; with `sums`, the blocks after them take the windowed sums and
-// the roots' keys of the sums tiles.
+// 32x32 tiles, the blocks after them the windowed sums and the roots' keys
+// of the sums tiles from `sum0` on.
 __global__ void __launch_bounds__(kBbThreads, 1)
     wide_stats_kernel(const int* __restrict__ lab, const float* __restrict__ prm, int h, int w,
                       int sweeps, int rsw, const unsigned* __restrict__ state_in,
                       unsigned* __restrict__ state_out, float* __restrict__ maps, int n_bb,
-                      int topk, unsigned long long* __restrict__ keys,
+                      int sum0, int topk, unsigned long long* __restrict__ keys,
                       unsigned* __restrict__ key_count) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if ((int)blockIdx.x < n_bb)
     wide_bbox_tile(blockIdx.x, lab, h, w, rsw, state_in, state_out, maps, smem_raw);
   else
-    wide_sums_tile(blockIdx.x - n_bb, lab, prm, h, w, sweeps, topk, maps, keys, key_count,
-                   smem_raw);
+    wide_sums_tile(blockIdx.x - n_bb + sum0, lab, prm, h, w, sweeps, topk, maps, keys,
+                   key_count, smem_raw);
 }
 
 // The wide path's top-k: the best roots among the `*key_count` keys (every
@@ -1075,7 +1091,8 @@ struct WideScratch {
 bool wide_shape(int sweeps, int topk) { return sweeps > kMaxSweeps || topk > kMaxTopk; }
 
 // The wide path after the blur (see the head of this file): the label
-// rounds, the bbox rounds (the first with the sums tiles), the merge.
+// rounds, the bbox rounds (each with its share of the sums tiles), the
+// merge.
 cudaError_t launch_wide(const float* blurred, const float* prm, int h, int w, int sweeps,
                         int topk, int* lab, float* maps, void* scratch, int* topk_out,
                         cudaStream_t st) {
@@ -1096,15 +1113,25 @@ cudaError_t launch_wide(const float* blurred, const float* prm, int h, int w, in
   if (e != cudaSuccess) return e;
   const bool one = 2 * sweeps <= kBbHalo;  // the label argument: one round is exact
   const int n_rounds = one ? 1 : (sweeps + kBbRoundSweeps - 1) / kBbRoundSweeps;
-  const int n_bb = tiles_of(h, w, kBbTile);
+  const int n_bb = tiles_of(h, w, kBbTile), n_sum = tiles_of(h, w, kSumTile);
+  // the sums tiles go to the first rounds, as many in each as there are SMs
+  // beside the bbox tiles
+  int dev = 0, n_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int free_sm = std::max(1, n_sm - n_bb);
+  const int sum_rounds = std::min(n_rounds, (n_sum + free_sm - 1) / free_sm);
   static bool ready = false;
   const unsigned* in = nullptr;
   for (int r = 0; r < n_rounds; ++r) {
     const int rsw = one ? sweeps : std::min(kBbRoundSweeps, sweeps - r * kBbRoundSweeps);
     unsigned* out = r + 1 == n_rounds ? nullptr : sc.plane[r % 2];
-    const int grid = n_bb + (r == 0 ? tiles_of(h, w, kSumTile) : 0);
-    e = launch_dynamic(wide_stats_kernel, ready, WideBb::kSmem, dim3(grid), kBbThreads, st, lab,
-                       prm, h, w, sweeps, rsw, in, out, maps, n_bb, topk, sc.keys, sc.count);
+    const int sum0 = r < sum_rounds ? n_sum * r / sum_rounds : n_sum;
+    const int sum1 = r < sum_rounds ? n_sum * (r + 1) / sum_rounds : n_sum;
+    e = launch_dynamic(wide_stats_kernel, ready, WideBb::kSmem, dim3(n_bb + sum1 - sum0),
+                       kBbThreads, st, lab, prm, h, w, sweeps, rsw, in, out, maps, n_bb, sum0,
+                       topk, sc.keys, sc.count);
     if (e != cudaSuccess) return e;
     in = out;
   }
