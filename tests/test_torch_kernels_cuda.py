@@ -208,6 +208,26 @@ def test_detect_stats_wide_band_exact(dev, sweeps, topk):
     assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
 
 
+@pytest.mark.parametrize("sweeps,topk", [(13, 65), (20, 128), (32, 100)])
+def test_detect_stats_wide_full_frame_exact(dev, sweeps, topk):
+    """The wide path on a whole 480x752 frame of `_band_image`: more bbox
+    tiles than SMs (rounds of several waves), sums tiles in every round,
+    and ~10,000 roots, so the merge sorts its compact keys in several
+    passes of at most 4,096."""
+    h, w = 480, 752
+    img = _band_image(h, w).to(dev)
+    prm = dk.make_params([0.0, 0.0, float(w), float(h)], 240.0, 8.0, 160.0, 0.6, dev)
+    got = dk.detect_stats(img, prm, 5, True, sweeps, topk)
+    want = dk.detect_stats_plain(img, prm, 5, True, sweeps, topk)
+    torch.cuda.synchronize()
+    roots = int((want[0] == torch.arange(1, h * w + 1, device=dev).reshape(h, w)).sum())
+    assert roots > 2 * 4096
+    assert torch.equal(got[0], want[0])
+    for i in range(dk.N_MAPS):
+        assert torch.equal(got[1][i], want[1][i]), f"map {i}"
+    assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
+
+
 @pytest.mark.parametrize("topk", [65, 128])
 @pytest.mark.parametrize("shape", [(192, 256), (61, 200)])
 def test_detect_stats_wide_topk_few_roots_exact(dev, shape, topk):
