@@ -108,7 +108,14 @@ Phases (any failure raises and exits non-zero):
      --save-video; ipe_legacy launching neither B nor D); then the golden
      pushed at 50 fps through `FramePipe` into the main-path tracker, and
      one `python -m ...io.cli --profile` process whose trace must hold
-     device events of kernel A.
+     device events of kernel A;
+ 20. bench -- `bench_torch.main` in this process for the default flags,
+     --sharded, --targets 2 and --ess-tau 0.0, each at 100,000 particles
+     on 752x480 frames over 120 frames of the orbit (one warm-up and two
+     timed runs), its launches counted: every frame updated, ATE < 10 mm,
+     orientation error < 1.5 deg, kernels A, B and D launched, H on
+     --sharded and C on the other three; each JSON line is printed under
+     [bench].
 Phases 10-15 each replay a second time warm, for frames per second and
 syncs per frame; every phase counts its kernel launches.
 Phase 3 also holds kernel B with a moving observer (ego-motion's
@@ -2261,6 +2268,46 @@ def cli_phase(device, card, counted, main_args, main_run, real_run, multi_4k_run
     return out
 
 
+BENCH_FLAG_SETS = ([], ["--sharded"], ["--targets", "2"], ["--ess-tau", "0.0"])
+BENCH_RUN = ["--frames", "120", "--warmup", "1", "--runs", "2"]
+
+
+def bench_phase(counted) -> list:
+    """Phase 20: `bench_torch.main` for each of BENCH_FLAG_SETS at its full
+    width (100,000 particles, 752x480) over BENCH_RUN's frames and runs,
+    launches counted over all its runs; each line must show every frame
+    updated and the golden's accuracy bars, and the kernels of its path
+    launched (A, B, D; H sharded, C otherwise)."""
+    import contextlib
+    import io
+
+    import bench_torch
+
+    def bench(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            line = bench_torch.main(argv)
+        assert out.getvalue().splitlines() == [json.dumps(line)]
+        return SimpleNamespace(line=line)
+
+    lines = []
+    for flags in BENCH_FLAG_SETS:
+        tag = "bench " + (" ".join(flags) or "default")
+        got = counted(tag, bench, flags + BENCH_RUN)
+        line, launches = got.line, got.launches
+        print(f"[bench] {json.dumps(line)}")
+        assert line["updated_frames_fraction"] == 1.0, f"{tag}: frames not updated"
+        assert line["ate_mm"] < 10, f"{tag}: ATE {line['ate_mm']:.2f} mm"
+        assert line["orientation_deg"] < 1.5, f"{tag}: orientation {line['orientation_deg']:.2f}"
+        gather, other = (("ring_gather", "resample_gather") if "--sharded" in flags
+                         else ("resample_gather", "ring_gather"))
+        for name in ("threshold_blur", "detect_stats", "pf_step", "gn_refine", gather):
+            assert launches[name] > 0, f"{tag}: never launched {name}"
+        assert launches[other] == 0, f"{tag}: launched {other}"
+        lines.append(dict(line, launches=launches))
+    return lines
+
+
 def accuracy(est, gt):
     err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
     rel = np.einsum("tij,tkj->tik", est[:, :3, :3], gt[:, :3, :3])
@@ -2460,6 +2507,9 @@ def main() -> int:
     # 19. the run_tracker CLI over the main path and every committed experiment
     new_paths["cli"] = cli_phase(device, card, counted, (d, cam, markers), main_run, real_run,
                                  multi_4k_run)
+
+    # 20. bench_torch.py's four flag sets at full width
+    new_paths["bench"] = bench_phase(counted)
 
     for r in rows:
         # each kernel's launches on the path it lies on: A-D on the main path, E

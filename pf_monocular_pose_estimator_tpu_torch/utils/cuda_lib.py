@@ -74,12 +74,12 @@ def digest(flags, files) -> str:
     return h.hexdigest()[:16]
 
 
-def cached_build(stem: str, flags, files, build) -> Path:
-    """`build_dir()/lib{stem}_{digest}.so`, made first if absent: `build(tmp,
-    out)` writes it to `out` in the temporary directory `tmp`, and it is moved
-    into place whole, so a build that fails or runs beside another leaves no
-    partial library behind."""
-    out_dir = build_dir()
+def cached_build(stem: str, flags, files, build, directory=None) -> Path:
+    """`directory/lib{stem}_{digest}.so` (`build_dir()` unless given), made
+    first if absent: `build(tmp, out)` writes it to `out` in the temporary
+    directory `tmp`, and it is moved into place whole, so a build that fails
+    or runs beside another leaves no partial library behind."""
+    out_dir = build_dir() if directory is None else Path(directory)
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"lib{stem}_{digest(flags, files)}.so"
     if not so.exists():
@@ -110,13 +110,18 @@ def _build(tmp: str, out: str) -> None:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, compiled first if its sources changed."""
+def library(directory=None) -> ctypes.CDLL:
+    """The loaded kernel library, compiled first if its sources changed.
+
+    With `directory`, the library is built there (in a fresh directory, a
+    cold build) and loaded in place of any loaded before, so every kernel
+    launched after the call comes from it."""
     global _lib, build_seconds
-    if _lib is not None:
+    if _lib is not None and directory is None:
         return _lib
     t0 = time.perf_counter()
-    so = cached_build("pfmpe_kernels", NVCC_FLAGS, [_CSRC / n for n in SOURCES + HEADERS], _build)
+    so = cached_build("pfmpe_kernels", NVCC_FLAGS, [_CSRC / n for n in SOURCES + HEADERS], _build,
+                      directory)
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -68,6 +68,9 @@ def test_port_never_imports_jax():
     smoke = PORT.parent / "chip_smoke.py"
     if pattern.search(smoke.read_text()):
         offenders.append(str(smoke))
+    bench = (PORT.parent / "bench_torch.py").read_text()
+    if pattern.search(bench) or re.search(r"^\s*(import|from)\s+(bench|chip_smoke)\b", bench, re.M):
+        offenders.append("bench_torch.py")
     assert not offenders, offenders
 
 

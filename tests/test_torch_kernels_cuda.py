@@ -943,3 +943,42 @@ def test_wrappers_reject_bad_input(dev):
                                                                      device=dev))
     with pytest.raises(ValueError):
         hk.ring_gather([torch.zeros(12, 8)], torch.zeros(8, dtype=torch.int32, device=dev))
+
+
+def test_bench_no_cache_builds_into_a_temporary_directory(dev, monkeypatch, capsys):
+    """`bench_torch.py --no-cache` builds the kernel library with nvcc into a
+    fresh temporary directory, runs on it, and leaves build/torch_kernels/
+    as it was."""
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    from pf_monocular_pose_estimator_tpu_torch.utils import cuda_lib
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import bench_torch
+
+    def listing():
+        d = cuda_lib.build_dir()
+        return {p.name: (p.stat().st_mtime_ns, p.stat().st_size) for p in d.iterdir()} \
+            if d.exists() else {}
+
+    before = listing()
+    built = []
+    real = cuda_lib.cached_build
+
+    def spy(*args, **kwargs):
+        so = real(*args, **kwargs)
+        built.append(so)
+        return so
+
+    monkeypatch.setattr(cuda_lib, "cached_build", spy)
+    monkeypatch.setattr(cuda_lib, "_lib", cuda_lib._lib)  # the library loaded before, back after
+    line = bench_torch.main(["--no-cache", "--particles", "2000", "--frames", "4", "--runs", "1"])
+    assert line["updated_frames_fraction"] == 1.0
+    assert len(built) == 1
+    so = built[0]
+    assert Path(tempfile.gettempdir()) in so.parents and cuda_lib.build_dir() not in so.parents
+    assert not so.parent.exists()  # removed when the run ended
+    assert cuda_lib._lib._name == str(so)
+    assert listing() == before

@@ -17,6 +17,7 @@ against the reference's, with tests/test_torch_tracker.py's bars."""
 
 import ast
 import importlib
+import inspect
 import os
 from pathlib import Path
 
@@ -54,7 +55,10 @@ EXEMPT = {
                                           "kernel under manual sharding; PyTorch has no SPMD "
                                           "partitioner to keep away from it",
     "utils/compile_cache.py": "the XLA persistent compilation cache; PyTorch runs eagerly and "
-                              "the kernels are built once into build/torch_kernels/",
+                              "the kernels are built once into build/torch_kernels/ "
+                              "(utils/cuda_lib.py::cached_build); bench_torch.py --no-cache, "
+                              "the counterpart of bench.py's, builds them cold into a "
+                              "temporary directory instead",
 }
 # pallas_* module -> its *_kernel counterpart, and each public function's
 # counterpart there ("module:name" where it lives elsewhere).
@@ -130,6 +134,8 @@ def test_exemptions_are_few_and_real():
     assert len(EXEMPT) == 2 and all(len(reason) > 40 for reason in EXEMPT.values())
     assert "replicated" in _public_defs(REF / "parallel" / "pf_kernels.py")
     assert (REF / "utils" / "compile_cache.py").exists()
+    assert "directory" in inspect.signature(_port("utils/cuda_lib").cached_build).parameters
+    assert "--no-cache" in (REF.parent / "bench_torch.py").read_text()
     assert not hasattr(_port("parallel/pf_kernels"), "replicated")
 
 
