@@ -115,7 +115,21 @@ Phases (any failure raises and exits non-zero):
      timed runs), its launches counted: every frame updated, ATE < 10 mm,
      orientation error < 1.5 deg, kernels A, B and D launched, H on
      --sharded and C on the other three; each JSON line is printed under
-     [bench].
+     [bench];
+ 21. accuracy -- `accuracy_torch.main(["--frames", "40"])` in this process
+     (the BASELINE.json configs on the orbit: 1,000 and 10,000 particles;
+     50,000 with one occlusion and two false detections, seeds 0-4, with
+     the engine's defaults and at reference parity; four targets of
+     25,000), its launches counted: config0 and config1 every frame, ATE <
+     10 mm, orientation < 1.5 deg; config3 tracked >= 0.95 and every
+     target's ATE <= 20 mm; config2's mean tracked fraction >= 0.9; the
+     parity row printed, held to nothing; A, #2, B, C and D launched;
+ 22. sweep -- `sweep_torch.main` over configs/sweeps/reference_grid.yaml
+     (18 cells x 2 seeds) and fault_grid.yaml (8 cells x 3 seeds), 40
+     frames each, JSON and markdown to a temporary directory, the matrices
+     printed under [sweep]: every cell's tracked fraction in [0, 1],
+     fault_grid's cells without faults at the golden's bars on every seed,
+     A, #2, B, C and D launched for each grid.
 Phases 10-15 each replay a second time warm, for frames per second and
 syncs per frame; every phase counts its kernel launches.
 Phase 3 also holds kernel B with a moving observer (ego-motion's
@@ -2308,6 +2322,78 @@ def bench_phase(counted) -> list:
     return lines
 
 
+# the kernels of the main path: A (#1), #2, B, C and D
+MAIN_KERNELS = ("detect_stats", "threshold_blur", "pf_step", "resample_gather", "gn_refine")
+ACCURACY_RUN = ["--frames", "40"]
+SWEEP_GRIDS = ("reference_grid.yaml", "fault_grid.yaml")
+
+
+def accuracy_phase(card, counted) -> dict:
+    """Phase 21: `accuracy_torch.main` (the BASELINE.json configs on the
+    40-frame orbit), its launches counted.  config0 and config1 hold the
+    golden's bars (every frame, ATE < 10 mm, orientation < 1.5 deg),
+    config3 tests/test_two_uav.py's (tracked >= 0.95, every target's ATE <=
+    20 mm), config2 tests/test_robustness.py's tracked fraction (the mean
+    of five seeds >= 0.9); the parity row is reported and held to nothing
+    (rounding decides which faulted seeds lock onto the clones)."""
+    import accuracy_torch
+
+    got = counted("accuracy", lambda: SimpleNamespace(report=accuracy_torch.main(ACCURACY_RUN)))
+    report, launches = got.report, got.launches
+    print(f"[accuracy] {card}: {json.dumps(report)}")
+    for row in ("config0_1k_clean", "config1_10k"):
+        r = report[row]
+        assert r["tracked_fraction"] == 1.0, f"accuracy {row}: tracked {r['tracked_fraction']}"
+        assert r["ate_mm"] < 10, f"accuracy {row}: ATE {r['ate_mm']} mm"
+        assert r["orientation_err_deg"] < 1.5, f"accuracy {row}: {r['orientation_err_deg']} deg"
+    multi = report["config3_4targets_25k"]
+    assert multi["tracked_fraction"] >= 0.95, f"accuracy config3: tracked {multi}"
+    assert max(multi["ate_mm_per_target"]) <= 20, f"accuracy config3: ATE {multi}"
+    faulted = report["config2_50k_outliers"]["tracked_fraction_mean"]
+    assert faulted >= 0.9, f"accuracy config2: tracked {faulted} (mean of five seeds)"
+    parity = report["config2_50k_outliers_reference_parity"]
+    print(f"[accuracy] reference parity (no bar): tracked {parity['tracked_fraction_mean']}, "
+          f"per seed {[(r['tracked_fraction'], r['ate_mm']) for r in parity['per_seed']]}")
+    for name in MAIN_KERNELS:
+        assert launches[name] > 0, f"accuracy: never launched {name}"
+    return dict(report, launches=launches)
+
+
+def sweep_phase(card, counted) -> dict:
+    """Phase 22: `sweep_torch.main` over configs/sweeps/reference_grid.yaml
+    (18 cells x 2 seeds) and fault_grid.yaml (8 cells x 3 seeds) at their
+    own 40 frames, JSON and markdown written to a temporary directory, the
+    launches of each grid counted.  Every cell's `tracked` lies in [0, 1];
+    fault_grid's cells without occlusions or false detections hold the
+    golden's bars on every seed; kernels A, #2, B, C and D are launched."""
+    import tempfile
+
+    import sweep_torch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SWEEP_GRIDS:
+            md = Path(tmp) / name.replace(".yaml", ".md")
+            argv = [str(ROOT / "configs" / "sweeps" / name), "--out",
+                    str(Path(tmp) / name.replace(".yaml", ".json")), "--md", str(md)]
+            got = counted(f"sweep {name}", lambda: SimpleNamespace(result=sweep_torch.main(argv)))
+            result, launches = got.result, got.launches
+            print(f"[sweep] {card}: {name}, {len(result['cells'])} cells, "
+                  f"{result['wall_s_total']} s\n{md.read_text()}")
+            for cell in result["cells"]:
+                assert 0.0 <= cell["tracked"] <= 1.0, f"sweep {name}: {cell}"
+                p = cell["params"]
+                if p.get("number_of_occlusions", 1) == 0 and p.get("number_of_false_detections",
+                                                                    1) == 0:
+                    assert cell["tracked"] == 1.0, f"sweep {name}: {cell}"
+                    assert max(cell["ate_mm"]) < 10, f"sweep {name}: {cell}"
+                    assert max(cell["ori_deg"]) < 1.5, f"sweep {name}: {cell}"
+            for kernel in MAIN_KERNELS:
+                assert launches[kernel] > 0, f"sweep {name}: never launched {kernel}"
+            out[name] = dict(result, launches=launches)
+    return out
+
+
 def accuracy(est, gt):
     err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
     rel = np.einsum("tij,tkj->tik", est[:, :3, :3], gt[:, :3, :3])
@@ -2510,6 +2596,10 @@ def main() -> int:
 
     # 20. bench_torch.py's four flag sets at full width
     new_paths["bench"] = bench_phase(counted)
+
+    # 21. accuracy_torch.py: the BASELINE.json configs; 22. sweep_torch.py: both grids
+    new_paths["accuracy"] = accuracy_phase(card, counted)
+    new_paths["sweep"] = sweep_phase(card, counted)
 
     for r in rows:
         # each kernel's launches on the path it lies on: A-D on the main path, E

@@ -68,9 +68,12 @@ def test_port_never_imports_jax():
     smoke = PORT.parent / "chip_smoke.py"
     if pattern.search(smoke.read_text()):
         offenders.append(str(smoke))
-    bench = (PORT.parent / "bench_torch.py").read_text()
-    if pattern.search(bench) or re.search(r"^\s*(import|from)\s+(bench|chip_smoke)\b", bench, re.M):
-        offenders.append("bench_torch.py")
+    # the root scripts of the port: nor `benchmarks/`, `bench.py` or chip_smoke.py
+    for script in ("bench_torch.py", "accuracy_torch.py", "sweep_torch.py"):
+        text = (PORT.parent / script).read_text()
+        if pattern.search(text) or re.search(r"^\s*(import|from)\s+(bench|benchmarks|chip_smoke)\b",
+                                             text, re.M):
+            offenders.append(script)
     assert not offenders, offenders
 
 
