@@ -1,0 +1,94 @@
+# Frozen copy of pf_monocular_pose_estimator_tpu_torch/utils/prng.py, the port's plain
+# PyTorch path, trimmed to what the benchmark's reference calls; it calls no
+# kernel and no code of the program.
+"""Threefry-2x32 counter streams, bit-identical to `jax.random` (jax 0.9,
+`jax_threefry_partitionable=True`).
+
+A key is two 32-bit words `(k0, k1)`, carried as Python ints on the host
+(the tracker state holds them as a (2,) int64 CPU tensor).  Splitting a
+key hashes tiny counters, so it stays on the host; bank-sized uniforms are
+hashed on the tensor's device.
+
+torch has no uint32 add or shift on the CPU, so tensors are int64 holding
+values in [0, 2**32) and every add is masked back to 32 bits.  The same
+code runs on Python ints.
+
+Layout of the partitionable stream (reference: `pf/soa.py::_uniform_at`,
+`pf/pallas_step.py::_threefry2x32` and its in-kernel draw):
+  * element `i` of a flat array of `n < 2**32` elements hashes the
+    counter words `(hi, lo) = (0, i)`; its 32 random bits are `o1 ^ o2`;
+  * `split(key, num)[i] = (o1, o2)` of the same hash at counter `i`;
+  * a float32 uniform is `bitcast((bits >> 9) | 0x3F800000) - 1`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+MASK = 0xFFFFFFFF
+_ROT_A = (13, 15, 26, 6)
+_ROT_B = (17, 29, 16, 24)
+
+
+def _rotl(v, d):
+    return ((v << d) | (v >> (32 - d))) & MASK
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The threefry-2x32 block function (20 rounds) on ints or int64 tensors."""
+    ks = (k0, k1, (k0 ^ k1 ^ 0x1BD11BDA) & MASK)
+    x0 = (x0 + ks[0]) & MASK
+    x1 = (x1 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROT_A if i % 2 == 0 else _ROT_B:
+            x0 = (x0 + x1) & MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK
+    return x0, x1
+
+
+def prng_key(seed: int) -> tuple[int, int]:
+    """`jax.random.PRNGKey(seed)` for a 32-bit seed."""
+    return ((seed >> 32) & MASK, seed & MASK)
+
+
+def split(key, num: int = 2) -> list[tuple[int, int]]:
+    """`jax.random.split(key, num)` as a list of (k0, k1) host words."""
+    k0, k1 = int(key[0]), int(key[1])
+    return [threefry2x32(k0, k1, 0, i) for i in range(num)]
+
+
+def random_bits(key, counters: torch.Tensor) -> torch.Tensor:
+    """32 random bits (int64 in [0, 2**32)) at the given flat counters."""
+    k0, k1 = int(key[0]), int(key[1])
+    c = counters.to(torch.int64)
+    o1, o2 = threefry2x32(k0, k1, torch.zeros_like(c), c)
+    return o1 ^ o2
+
+
+def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+    """Map 32 random bits to a float32 in [0, 1) exactly as jax does."""
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return fb.view(torch.float32) - 1.0
+
+
+def uniform_at(key, counters: torch.Tensor) -> torch.Tensor:
+    """`jax.random.uniform(key, (n,), float32)[counters]` without the array."""
+    return bits_to_unit_float(random_bits(key, counters))
+
+
+def uniform(key, shape, device="cpu", minval=0.0, maxval=1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`.
+
+    minval/maxval may be floats or float32 tensors broadcastable to `shape`;
+    jax's affine is `max(minval, u * (maxval - minval) + minval)`."""
+    u = uniform_at(key, torch.arange(math.prod(shape), device=device)).reshape(shape)
+    if isinstance(minval, float) and isinstance(maxval, float) and (minval, maxval) == (0.0, 1.0):
+        return u
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, u * (hi - lo) + lo)
+
