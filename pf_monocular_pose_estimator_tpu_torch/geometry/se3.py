@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.sync import upload
+
 _EPS = 1e-8
 
 
@@ -42,8 +44,7 @@ def _sinc_terms(theta_sq: torch.Tensor):
 
 def _homogeneous(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     top = torch.cat([rot, t[..., None]], dim=-1)  # (..., 3, 4)
-    bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom = upload([0.0, 0.0, 0.0, 1.0], top.device, top.dtype).expand(top[..., :1, :].shape)
     return torch.cat([top, bottom], dim=-2)
 
 

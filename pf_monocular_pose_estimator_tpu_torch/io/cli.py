@@ -15,7 +15,8 @@ Usage:
 Flags, their precedence (flag > experiment file > built-in default) and
 the summary's keys are the JAX CLI's.  Where it differs: `--device` takes
 `cuda` (the default) or `cpu`; `--profile DIR` writes a `torch.profiler`
-trace (`DIR/trace.json`, CPU and CUDA activity); there is no `--no-cache`,
+trace (`DIR/trace.json`, CPU and CUDA activity, with the frame step's
+`utils/trace.py` spans); there is no `--no-cache`,
 as there is no compilation cache to turn off.
 """
 
@@ -33,7 +34,7 @@ import torch
 from ..pf.soa import unpack
 from ..tracker import (TargetState, create_states, make_multi_tracker, make_tracker,
                        pad_marker_sets)
-from ..utils import TrackerConfig, save_state
+from ..utils import TrackerConfig, save_state, trace
 from ..utils.prng import prng_key
 from .experiment import load_experiment
 from .markers import load_camera_calibration, load_marker_positions
@@ -214,6 +215,7 @@ def main(argv=None):
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
         profiler.__enter__()
+        trace.enable()  # the frame step's spans in the trace, beside the device events
 
     def sync():
         if device.type == "cuda":
@@ -258,6 +260,8 @@ def main(argv=None):
                   f"flag={flags[-1]}  t_pose={dt_ms:7.2f}ms")
     wall = time.perf_counter() - t_start
     if profiler is not None:
+        trace.disable()
+        trace.take()
         profiler.__exit__(None, None, None)
         os.makedirs(args.profile, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))

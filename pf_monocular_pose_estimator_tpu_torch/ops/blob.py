@@ -20,7 +20,7 @@ import torch
 
 from ..geometry.camera import Camera, distort_pixels, undistort_pixels
 from ..utils.config import BlobParams
-from ..utils.sync import HostReads
+from ..utils.sync import HostReads, upload
 from . import detect_kernel as dk
 
 _IMAX = 2**31 - 1
@@ -42,10 +42,6 @@ class Detections:
         return torch.sum(self.mask.to(torch.int32))
 
 
-def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32).to(device)
-
-
 def _argsort_stable(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, stable=True).indices
 
@@ -63,7 +59,7 @@ def _split_and_compact(params: BlobParams, comp_ids, cx, cy, area, valid, var_xx
     """Split oversized elongated components into two detections, then
     compact valid detections to the front in component-id order."""
     dev = cx.device
-    imax = torch.tensor(_IMAX, dtype=comp_ids.dtype, device=dev)
+    imax = upload(_IMAX, dev, comp_ids.dtype)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if not params.split_merged:
         perm = _argsort_stable(torch.where(valid, comp_ids, imax))
@@ -263,13 +259,13 @@ def find_leds(image: torch.Tensor, roi: torch.Tensor, params: BlobParams, camera
     h, w = image.shape
     dev = image.device
     img = image.float()
-    min_area = _f32(params.min_blob_area if min_area is None else min_area, dev)
-    max_area = _f32(params.max_blob_area if max_area is None else max_area, dev)
-    threshold = _f32(params.threshold if threshold is None else threshold, dev)
-    wh_tol = _f32(params.max_width_height_distortion if wh_distortion is None else wh_distortion,
-                  dev)
-    circ_tol = _f32(params.max_circular_distortion if circ_distortion is None
-                    else circ_distortion, dev)
+    min_area = upload(params.min_blob_area if min_area is None else min_area, dev)
+    max_area = upload(params.max_blob_area if max_area is None else max_area, dev)
+    threshold = upload(params.threshold if threshold is None else threshold, dev)
+    wh_tol = upload(params.max_width_height_distortion if wh_distortion is None
+                    else wh_distortion, dev)
+    circ_tol = upload(params.max_circular_distortion if circ_distortion is None
+                      else circ_distortion, dev)
     roi = roi.float()
     args = (params, min_area, max_area, threshold, wh_tol, circ_tol)
 
@@ -286,9 +282,9 @@ def find_leds(image: torch.Tensor, roi: torch.Tensor, params: BlobParams, camera
         cy0 = int(np.clip(np.round(r[1] + r[3] / half_two - np.float32(ch / 2)), 0, h - ch))
         img_c = img[cy0 : cy0 + ch, cx0 : cx0 + cw].contiguous()
         offset = np.asarray([cx0, cy0], np.float32)
-        roi_local = torch.from_numpy(np.concatenate([r[:2] - offset, r[2:]])).to(dev)
+        roi_local = host.put(np.concatenate([r[:2] - offset, r[2:]]), dev)
         xy_d, mask, area_s = _detect_blobs_fused(img_c, roi_local, *args)
-        xy_d = xy_d + torch.from_numpy(offset).to(dev)[None, :]
+        xy_d = xy_d + host.put(offset, dev)[None, :]
     else:
         xy_d, mask, area_s = _detect_blobs(img, roi, *args)
 
@@ -323,7 +319,7 @@ def determine_roi(predicted_pixels: torch.Tensor, pixel_mask: torch.Tensor, came
     y0 = torch.clamp(dist[0, 1] - border, 0.0, hf)
     y1 = torch.clamp(dist[1, 1] + border, 0.0, hf)
     degenerate = ((x1 - x0) < 1.0) | ((y1 - y0) < 1.0) | ~torch.any(pixel_mask)
-    full = torch.tensor([0.0, 0.0, wf, hf], dtype=torch.float32, device=dev)
+    full = upload([0.0, 0.0, wf, hf], dev)
     box = torch.stack([x0, y0, x1 - x0, y1 - y0])
     return torch.where(degenerate, full, box)
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils import cuda_lib
+from ..utils.sync import upload
 
 N_MAPS = 10  # cnt, sx, sy, xmin, xmax, ymin, ymax, sxx, syy, sxy
 # What kernel A's `detect_stats` takes on the card (csrc/detect.cu): every
@@ -50,8 +51,8 @@ def gaussian_taps(sigma: float) -> np.ndarray:
 
 def make_params(roi, threshold, min_area, max_area, sigma: float, device) -> torch.Tensor:
     """Pack the kernel's parameter vector (all float32, on `device`)."""
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
-    taps = torch.from_numpy(gaussian_taps(sigma)).to(device)
+    f = lambda v: upload(v, device).reshape(-1)
+    taps = upload(gaussian_taps(sigma), device)
     return torch.cat([f(roi), f(threshold), f(min_area), f(max_area), taps])
 
 
@@ -211,8 +212,10 @@ def detect_stats(img: torch.Tensor, prm: torch.Tensor, ntaps: int, active: bool 
         top.data_ptr(), cuda_lib.stream_ptr(img),
     )
     detect_stats.launches += 1
+    detect_stats.pixels += h * w
     cuda_lib.check(code, "pfmpe_detect_stats")
     return lab, maps, top.long()
 
 
 detect_stats.launches = 0
+detect_stats.pixels = 0  # h * w of every launch: kernel A's bytes scale with it

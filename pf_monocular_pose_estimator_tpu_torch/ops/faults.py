@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import prng
+from ..utils.sync import upload
 from .blob import Detections
 
 
@@ -46,7 +47,7 @@ def inject_faults(key, detections: Detections, num_occlusions: int, num_false_de
     if num_occlusions > 0:
         # random priorities over the true detections; the first
         # `num_occlusions` of them are the candidates, distinct by construction
-        prio = prng.uniform(key_occ, (k_cap,)).to(dev)  # hashed on the host, as below
+        prio = upload(prng.uniform(key_occ, (k_cap,)), dev)  # hashed on the host, as below
         prio = torch.where(mask, prio, torch.full((), -1.0, device=dev))
         order = _argsort_stable(-prio)
         coins = prng.bernoulli(key_coin, 0.5, (num_occlusions,), device=dev)

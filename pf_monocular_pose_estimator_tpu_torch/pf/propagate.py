@@ -12,6 +12,7 @@ import torch
 
 from ..geometry.se3 import rotation_rpy
 from ..utils import prng
+from ..utils.sync import upload
 
 
 class NoiseBounds(NamedTuple):
@@ -47,7 +48,7 @@ def propagate(key, resampled_bank: torch.Tensor, current_pose, predicted_pose,
     and predicted poses."""
     dev = resampled_bank.device
     n = resampled_bank.shape[0]
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
+    f = lambda v: upload(v, dev)
     k_rot, k_trans = prng.split(key)
     base = resampled_bank
     if bool(tracking):

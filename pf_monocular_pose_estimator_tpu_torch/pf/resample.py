@@ -18,6 +18,7 @@ import math
 import torch
 
 from ..utils import prng
+from ..utils.sync import upload
 from .soa import chunked_cdf_norm, default_cdf_chunk
 
 
@@ -42,7 +43,7 @@ def stratified_resample(key, weights: torch.Tensor):
     n = weights.shape[0]
     dev = weights.device
     cdf = chunked_cdf_norm(weights, default_cdf_chunk(n))
-    n_f = torch.tensor(float(n), dtype=torch.float32, device=dev)
+    n_f = upload(float(n), dev)
     u = (torch.arange(n, dtype=torch.float32, device=dev) + prng.uniform(key, (n,), dev)) / n_f
     ancestors = torch.clamp(searchsorted_scan(cdf, u), 0, n - 1)
     counts = torch.bincount(ancestors, minlength=n)
@@ -60,7 +61,7 @@ def count_leq_norm(cdf_n: torch.Tensor, key, n: int) -> torch.Tensor:
     """#{draws u_g = fl((g + eps_g) / n) : u_g <= cdf_n} for normalised CDF
     values, by six threefry probes around floor(n * cdf_n) (exact for
     8 <= n <= 2**22).  Returns int32."""
-    nf = torch.tensor(float(n), dtype=cdf_n.dtype, device=cdf_n.device)
+    nf = upload(float(n), cdf_n.device, cdf_n.dtype)
     k = torch.clamp(torch.floor(cdf_n * nf).to(torch.int32), 0, n - 1)
     k_c = torch.clamp(k, 3, n - 3)
     cnt = k_c - 3

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import prng
+from ..utils.sync import upload
 
 
 def pack(bank: torch.Tensor) -> torch.Tensor:
@@ -106,7 +107,7 @@ def propagate_soa(key, resampled16: torch.Tensor, current_pose, predicted_pose, 
     dev = resampled16.device
     n = resampled16.shape[1]
     n_total = n if n_total is None else n_total
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
+    f = lambda v: upload(v, dev)
     k_rot, k_trans = prng.split(key)
     if tracking and apply_prediction:
         base = compose_const_left(f(cam_move_inv), compose_const_right(resampled16,
@@ -160,8 +161,8 @@ def weight_particles_soa(camera, bank16: torch.Tensor, markers_h: torch.Tensor,
     k_cap = det_xy.shape[0]
     n = bank16.shape[1]
     dev = bank16.device
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
-    big = torch.tensor(torch.finfo(torch.float32).max / 4, dtype=torch.float32, device=dev)
+    f = lambda v: upload(v, dev)
+    big = upload(torch.finfo(torch.float32).max / 4, dev)
     if num_markers_score is None:
         num_markers_score = torch.sum(marker_mask.float())
     x, y, z = (markers_h[:, i][:, None] for i in range(3))
@@ -259,7 +260,7 @@ def chunked_cdf_norm(weights: torch.Tensor, chunk: int) -> torch.Tensor:
     ok = total > 0
     # divisors stay device tensors: CUDA divides by a CPU scalar through its
     # reciprocal, which is not the reference's correctly rounded quotient
-    n_f = torch.tensor(float(n), dtype=weights.dtype, device=weights.device)
+    n_f = upload(float(n), weights.device, weights.dtype)
     uniform = torch.arange(1, n + 1, dtype=weights.dtype, device=weights.device) / n_f
     return torch.where(ok, cdf / torch.where(ok, total, torch.ones_like(total)), uniform)
 
@@ -286,7 +287,7 @@ def stratified_resample_soa(key, weights: torch.Tensor):
     dev = weights.device
     cdf = chunked_cdf_norm(weights, default_cdf_chunk(n))
     eps = prng.uniform(key, (n,), device=dev)
-    n_f = torch.tensor(float(n), dtype=torch.float32, device=dev)
+    n_f = upload(float(n), dev)
     u = (torch.arange(n, dtype=torch.float32, device=dev) + eps) / n_f
     qk = torch.sort(_merge_key(u, 0)).values
     ck = torch.sort(_merge_key(cdf, 1)).values
@@ -309,7 +310,7 @@ def stratified_resample_closed(key, weights: torch.Tensor):
         return stratified_resample_soa(key, weights)
     dev = weights.device
     cdf = torch.cummax(chunked_cdf_norm(weights, default_cdf_chunk(n)), dim=0).values
-    nf = torch.tensor(float(n), dtype=torch.float32, device=dev)
+    nf = upload(float(n), dev)
     k = torch.floor(cdf * nf).to(torch.int32)
     k_c = torch.clamp(k, 3, n - 3)
     rank = k_c - 3

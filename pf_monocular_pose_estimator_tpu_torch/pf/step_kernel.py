@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda_lib, prng
+from ..utils.sync import upload
 from .soa import compose_const_left, compose_const_right, noisy_rows, rotation_entries
 from .weight_kernel import check_card_shape, pack_weight_params, weight_plain
 
@@ -128,7 +129,7 @@ def step_params(key, current_pose, predicted_pose, prediction_matrix, cam_move_i
     """One PF pass's arguments as kernel B takes them -> (prm, keys4).  They
     do not depend on the lanes, so a sharded pass builds them once."""
     dev = det_xy.device
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
+    f = lambda v: upload(v, dev)
     k_rot, k_trans = prng.split(key)
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     left = f(cam_move_inv) if tracking else eye

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.camera import Camera, project
+from ..utils.sync import upload
 
 
 def weight_particles(camera: Camera, bank: torch.Tensor, markers_h: torch.Tensor,
@@ -19,7 +20,7 @@ def weight_particles(camera: Camera, bank: torch.Tensor, markers_h: torch.Tensor
     m = markers_h.shape[0]
     k_cap = det_xy.shape[0]
     dev = bank.device
-    big = torch.tensor(torch.finfo(torch.float32).max / 4, dtype=torch.float32, device=dev)
+    big = upload(torch.finfo(torch.float32).max / 4, dev)
     if num_markers_score is None:
         num_markers_score = torch.sum(marker_mask.float())
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda_lib
+from ..utils.sync import upload
 
 BIG = 3.0e37  # distance sentinel of masked cells (reference pf/pallas_weight.py::_BIG)
 # What kernels B and E take on the card (csrc/pf_common.cuh kMaxK, kMaxM):
@@ -147,7 +148,7 @@ def weight_particles_bank(camera, bank16, markers_h, marker_mask, det_xy, det_ma
     """Counterpart of the reference's `weight_particles_pallas` ->
     (weights (N,), pairs (M, 2, N) int32, n_corr (N,) int32)."""
     dev = bank16.device
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32).to(dev)
+    f = lambda v: upload(v, dev)
     if num_markers_score is None:
         num_markers_score = torch.sum(marker_mask.float())
     scal = torch.stack([f(camera.fx), f(camera.fy), f(camera.cx), f(camera.cy), f(tol_pf),

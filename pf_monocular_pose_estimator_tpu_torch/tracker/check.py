@@ -14,6 +14,7 @@ from ..solvers import combination_table, p3p_kneip, p3p_object_to_camera
 from ..utils.config import TrackerConfig
 from ..utils.dynamic import DynamicParams
 from ..utils.flags import FailFlag
+from ..utils.sync import upload
 
 
 class CheckResult(NamedTuple):
@@ -43,7 +44,7 @@ def check_correspondences(camera: Camera, det_xy: torch.Tensor, det_mask: torch.
     pair_xy = det_xy[safe_det]  # (R, M, 2)
     bearings = bearing_vectors(camera, pair_xy)  # (R, M, 3)
 
-    combos = torch.from_numpy(combination_table(m_cap, 3)).long().to(dev)  # (C, 3)
+    combos = upload(combination_table(m_cap, 3), dev, torch.int64)  # (C, 3)
     combo_ok = pair_ok[:, combos].all(dim=-1)  # (R, C)
     sols, p3p_ok = p3p_kneip(bearings[:, combos], markers_h[combos][..., :3][None])
     t_oc = p3p_object_to_camera(sols)  # (R, C, 4, 4, 4)

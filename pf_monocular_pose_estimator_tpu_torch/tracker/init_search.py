@@ -12,6 +12,7 @@ from ..ops.blob import Detections
 from ..solvers import combination_table, p3p_kneip, p3p_object_to_camera, permutation_table
 from ..utils.config import TrackerConfig
 from ..utils.dynamic import DynamicParams
+from ..utils.sync import upload
 
 
 def topk_lowest_index(x: torch.Tensor, k: int):
@@ -27,8 +28,8 @@ def brute_force_histogram(camera: Camera, det: Detections, markers_h: torch.Tens
     dev = det.xy.device
     k_cap = det.xy.shape[0]
     m_cap = markers_h.shape[0]
-    combos = torch.from_numpy(combination_table(k_cap, 3)).long().to(dev)  # (C, 3)
-    perms = torch.from_numpy(permutation_table(m_cap, 3)).long().to(dev)  # (P, 3)
+    combos = upload(combination_table(k_cap, 3), dev, torch.int64)  # (C, 3)
+    perms = upload(permutation_table(m_cap, 3), dev, torch.int64)  # (P, 3)
     n_c, n_p = combos.shape[0], perms.shape[0]
 
     bearings = bearing_vectors(camera, det.xy)
@@ -127,7 +128,7 @@ def correspondences_from_histogram(hist: torch.Tensor, det_mask: torch.Tensor,
     n_combo = t_cap ** m_cap
     digits = np.stack([(np.arange(n_combo) // (t_cap ** j)) % t_cap for j in range(m_cap)],
                       axis=-1)
-    digits = torch.from_numpy(digits).long().to(dev)  # (n_combo, M)
+    digits = upload(digits, dev, torch.int64)  # (n_combo, M)
     radix = torch.clamp(n_cand, min=1)[None, :]
     canonical = (digits < radix).all(dim=-1)
     has_cand = (n_cand > 0)[None, :]

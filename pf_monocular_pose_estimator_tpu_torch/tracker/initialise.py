@@ -12,6 +12,7 @@ from ..ops.blob import Detections
 from ..utils.config import TrackerConfig
 from ..utils.dynamic import DynamicParams
 from ..utils.flags import FailFlag
+from ..utils.sync import upload
 from .check import check_correspondences
 from .init_search import brute_force_histogram, correspondences_from_histogram
 
@@ -75,7 +76,7 @@ def initialise(camera: Camera, det: Detections, markers_h: torch.Tensor,
     m_cap = markers_h.shape[0]
     n_markers = torch.sum(marker_mask.to(torch.int32))
     if not config.use_particle_filter:
-        min_needed = torch.tensor(config.min_num_leds_detected, dtype=torch.int32, device=dev)
+        min_needed = upload(config.min_num_leds_detected, dev, torch.int32)
     elif config.pf_init_min_markers > 0:
         min_needed = torch.clamp(n_markers, max=config.pf_init_min_markers)
     else:
@@ -109,8 +110,7 @@ def initialise(camera: Camera, det: Detections, markers_h: torch.Tensor,
             r_rel = torch.einsum("cij,kj->cik", results.pose[:, :3, :3], r_prev)
             tr = r_rel[:, 0, 0] + r_rel[:, 1, 1] + r_rel[:, 2, 2]
             cos_a = torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0)
-            cos_lim = torch.cos(torch.deg2rad(torch.tensor(
-                config.init_consistency_rotation_deg, dtype=torch.float32, device=dev)))
+            cos_lim = torch.cos(torch.deg2rad(upload(config.init_consistency_rotation_deg, dev)))
             consistent = consistent & (cos_a >= cos_lim)
         first = torch.where(torch.any(consistent), first_true(consistent), first)
     pose = results.pose[first]

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..geometry.camera import Camera
-from ..utils import prng
+from ..utils import prng, trace
 from ..utils.config import TrackerConfig
 from ..utils.sync import HostReads
 from .state import FrameResult, TargetState
@@ -73,7 +73,8 @@ class MultiTracker:
 
     `trackers` are the per-target steps, one after another on the shared
     frame.  They share one `HostReads`, so `host.count / frames` is the
-    device -> host syncs per multi-target frame.  `gather(results)`, when
+    device -> host syncs per multi-target frame (and `host.uploads / frames`
+    the host -> device copies).  `gather(results)`, when
     given, completes the stacked results of the targets this process holds
     to every target's (`parallel.mesh.make_sharded_multi_tracker`)."""
 
@@ -81,20 +82,22 @@ class MultiTracker:
         self.trackers = list(trackers)
         self.gather = gather
         self.host = HostReads()
-        for tracker in self.trackers:
+        for i, tracker in enumerate(self.trackers):
             tracker.host = self.host
+            tracker.target = i
         self.frames = 0
 
     def __call__(self, states: TargetState, image: torch.Tensor, t):
-        image = image.to(self.trackers[0].device)
-        outs = [tracker(target_state(states, i), image, t)
-                for i, tracker in enumerate(self.trackers)]
-        self.frames += 1
-        results = stack_results([r for _, r in outs])
-        if self.gather is not None:
-            results = self.gather(results)
-            self.host.count += 1
-        return stack_states([s for s, _ in outs]), results
+        with self.host, trace.span("multi.frame", self.host, self.frames):
+            image = self.host.put(image, self.trackers[0].device, image.dtype)
+            outs = [tracker(target_state(states, i), image, t)
+                    for i, tracker in enumerate(self.trackers)]
+            self.frames += 1
+            results = stack_results([r for _, r in outs])
+            if self.gather is not None:
+                results = self.gather(results)
+                self.host.count += 1
+            return stack_states([s for s, _ in outs]), results
 
 
 def make_multi_tracker(camera: Camera, markers_h, marker_masks, config: TrackerConfig,

@@ -55,11 +55,11 @@ from ..pf.soa import (
 from ..pf.step_kernel import fused_propagate_weight, resample_gather
 from ..pf.weight import weight_particles
 from ..pf.weight_kernel import check_card_shape, weight_particles_bank
-from ..utils import prng
+from ..utils import prng, trace
 from ..utils.config import TrackerConfig
 from ..utils.dynamic import DynamicParams
 from ..utils.flags import FailFlag
-from ..utils.sync import HostReads
+from ..utils.sync import HostReads, upload
 from .bank import WholeBank
 from .check import check_correspondences
 from .initialise import InitResult, argsort_stable, initialise
@@ -85,8 +85,7 @@ def _ego_motion(state: TargetState, t: torch.Tensor, obs_pose: torch.Tensor,
     dev = obs_pose.device
     eye = torch.eye(4, dtype=obs_pose.dtype, device=dev)
     singular = torch.abs(torch.linalg.det(obs_pose)) < 1e-9
-    obs_cam = torch.where(singular, eye, obs_pose) @ torch.tensor(_ROT_CAM, dtype=obs_pose.dtype,
-                                                                  device=dev)
+    obs_cam = torch.where(singular, eye, obs_pose) @ upload(_ROT_CAM, dev, obs_pose.dtype)
     new_avail = obs_time > state.time_obs_act
     change = torch.where(new_avail, inverse(state.obs_cam_old) @ obs_cam, state.change_cam_pose)
     obs_cam_old = torch.where(new_avail, obs_cam, state.obs_cam_old)
@@ -120,8 +119,10 @@ class Tracker:
     `obs_time` its time stamp (the identity and 0 when not given); `dyn`
     overrides the runtime-tunable parameters of the config.
 
-    `host.count` counts the device -> host reads so far and `frames` the
-    frames stepped, so `host.count / frames` is the syncs per frame.  With
+    `host.count` counts the device -> host reads so far, `host.uploads` the
+    host -> device copies, and `frames` the frames stepped, so
+    `host.count / frames` is the syncs per frame.  `target` is the index
+    `utils.trace` spans carry (a multi-target step sets it).  With
     `use_pallas_resample`, `decoded_frames` and `fallback_frames` list the
     frames whose resampling took the decode's result and the sort path's.
     The tracker runs on the card unless `device` says otherwise.
@@ -163,23 +164,25 @@ class Tracker:
         self.params = config.blob_params()
         self.host = HostReads()
         self.frames = 0
+        self.target = 0
         self.decoded_frames: list[int] = []
         self.fallback_frames: list[int] = []
 
     # ------------------------------------------------------------ helpers
     def _t(self, v, dtype=torch.float32) -> torch.Tensor:
-        return torch.tensor(v, dtype=dtype, device=self.device)
+        return self.host.put(v, self.device, dtype)
 
     def _on_device(self, v) -> torch.Tensor:
         """A caller's number, array or tensor as float32 on the tracker's
         device, with no read back to the host."""
-        return torch.as_tensor(v, dtype=torch.float32).to(self.device)
+        return self.host.put(v, self.device)
 
     def _detect(self, image, roi, min_a, max_a, dyn: DynamicParams) -> Detections:
-        return find_leds(image, roi, self.params, self.camera, min_a, max_a,
-                         threshold=dyn.threshold_value,
-                         wh_distortion=dyn.max_width_height_distortion,
-                         circ_distortion=dyn.max_circular_distortion, host=self.host)
+        with trace.span("detect"):
+            return find_leds(image, roi, self.params, self.camera, min_a, max_a,
+                             threshold=dyn.threshold_value,
+                             wh_distortion=dyn.max_width_height_distortion,
+                             circ_distortion=dyn.max_circular_distortion, host=self.host)
 
     def _adaptive_blob_areas(self, dyn: DynamicParams, pred_dist: torch.Tensor):
         c = self.config
@@ -229,13 +232,17 @@ class Tracker:
     # ------------------------------------------------------------- step
     def __call__(self, state: TargetState, image: torch.Tensor, t, obs_pose=None, obs_time=None,
                  dyn: DynamicParams | None = None):
+        with self.host, trace.span("tracker.frame", self.host, self.frames, self.target):
+            return self._step(state, image, t, obs_pose, obs_time, dyn)
+
+    def _step(self, state, image, t, obs_pose, obs_time, dyn):
         if dyn is None:
             dyn = self.dyn
             dyn_host = self._dyn_host
         else:
             vals = self.host(torch.stack([getattr(dyn, n) for n in _HOST_DYN]))
             dyn_host = dict(zip(_HOST_DYN, vals))
-        image = image.to(self.device)
+        image = self.host.put(image, self.device, image.dtype)
         t = self._on_device(t)
         it, unc, coast, deg = self.host(torch.stack([
             state.it_since_initialized, state.uncertainty, state.coast_frames,
@@ -244,7 +251,9 @@ class Tracker:
                               pose_updated=self._t(False, torch.bool))
         counters = (it, unc, coast, deg)
         if it < 1:
-            state, det, best_weight, used_bf = self._init_branch(state, image, t, dyn, counters)
+            with trace.span("tracker.init"):
+                state, det, best_weight, used_bf = self._init_branch(state, image, t, dyn,
+                                                                     counters)
         elif self.config.use_particle_filter:
             cam_move_inv = self._eye4
             if self.config.use_cam_pos:
@@ -373,22 +382,23 @@ class Tracker:
         it, unc, coast, deg = counters
         key, k_faults, k_resample = prng.split(state.key.tolist(), 3)
 
-        dt_past = state.time_current - state.time_previous
-        prediction = predict_constant_velocity(state.previous_pose, state.current_pose, dt_past,
-                                               t - state.time_current)
-        predicted = cam_move_inv @ (state.current_pose @ prediction)
+        with trace.span("tracker.roi"):
+            dt_past = state.time_current - state.time_previous
+            prediction = predict_constant_velocity(state.previous_pose, state.current_pose, dt_past,
+                                                   t - state.time_current)
+            predicted = cam_move_inv @ (state.current_pose @ prediction)
 
-        # ROI from predicted particle pixels
-        s_cap = min(c.roi_particle_subsample, self.bank.n_lanes(state.weights))
-        sub = cam_move_inv @ unpack(self.bank.head(state.resampled, s_cap)) @ prediction
-        pix = torch.cat([project(self.camera, sub, self.markers_h).reshape(-1, 2),
-                         project(self.camera, predicted, self.markers_h)])
-        pix_mask = torch.cat([self.marker_mask[None, :].expand(s_cap, -1).reshape(-1),
-                              self.marker_mask])
-        roi = determine_roi(pix, pix_mask, self.camera, c.roi_border_thickness)
-        dist_val = torch.clamp(c.roi_distance_gain / torch.clamp(state.current_pose[2, 3], min=0.1),
-                               0.0, 100.0)
-        roi = grow_roi(roi, dist_val, dist_val, self.camera)
+            # ROI from predicted particle pixels
+            s_cap = min(c.roi_particle_subsample, self.bank.n_lanes(state.weights))
+            sub = cam_move_inv @ unpack(self.bank.head(state.resampled, s_cap)) @ prediction
+            pix = torch.cat([project(self.camera, sub, self.markers_h).reshape(-1, 2),
+                             project(self.camera, predicted, self.markers_h)])
+            pix_mask = torch.cat([self.marker_mask[None, :].expand(s_cap, -1).reshape(-1),
+                                  self.marker_mask])
+            roi = determine_roi(pix, pix_mask, self.camera, c.roi_border_thickness)
+            dist_val = torch.clamp(c.roi_distance_gain
+                                   / torch.clamp(state.current_pose[2, 3], min=0.1), 0.0, 100.0)
+            roi = grow_roi(roi, dist_val, dist_val, self.camera)
 
         min_a, max_a = self._adaptive_blob_areas(dyn, torch.linalg.norm(predicted[:3, 3]))
         det = self._detect(image, roi, min_a, max_a, dyn)
@@ -450,24 +460,26 @@ class Tracker:
             weight_fn = weight_particles_bank if c.use_pallas_weight else weight_particles_soa
             return bank_i, weight_fn(self.camera, bank_i, *weigh)[0]
 
-        key, k_loop = prng.split(key)
-        state = state.replace(key=torch.tensor(key, dtype=torch.int64))
-        k_rest, k0 = prng.split(k_loop)
-        bank16, best_w = pf_compute(0, k0)
-        highest = self.host(self.bank.max(best_w))
-        pf_it = 1
-        while pf_it < c.pf_max_retries and highest < exit_gate:
-            k_rest, k = prng.split(k_rest)
-            bank_i, w_i = pf_compute(pf_it, k)
-            new_high = self.host(self.bank.max(w_i))
-            if new_high > highest:
-                bank16, best_w = bank_i, w_i
-            highest = max(highest, new_high)
-            pf_it += 1
+        with trace.span("pf.loop"):
+            key, k_loop = prng.split(key)
+            state = state.replace(key=torch.tensor(key, dtype=torch.int64))
+            k_rest, k0 = prng.split(k_loop)
+            bank16, best_w = pf_compute(0, k0)
+            highest = self.host(self.bank.max(best_w))
+            pf_it = 1
+            while pf_it < c.pf_max_retries and highest < exit_gate:
+                k_rest, k = prng.split(k_rest)
+                bank_i, w_i = pf_compute(pf_it, k)
+                new_high = self.host(self.bank.max(w_i))
+                if new_high > highest:
+                    bank16, best_w = bank_i, w_i
+                highest = max(highest, new_high)
+                pf_it += 1
         highest_t = self.bank.max(best_w)
 
         if c.motion_prior_radius > 0.0:
-            d = torch.linalg.norm(bank16[..., [3, 7, 11], :] - predicted[:3, 3][:, None], dim=-2)
+            d = torch.linalg.norm(bank16[..., self._t([3, 7, 11], torch.int64), :]
+                                  - predicted[:3, 3][:, None], dim=-2)
             excess = torch.clamp(d - c.motion_prior_radius, min=0.0) / self._t(
                 c.motion_prior_falloff)
             prior = torch.exp(-0.5 * excess * excess)
@@ -621,96 +633,100 @@ class Tracker:
         flag."""
         c = self.config
         dev = self.device
-        if "resample" in c.debug_skip:
-            resampled16, most = bank16, self.bank.argmax(weights_norm)
-        elif c.resample_min_ess <= 0.0 or ess_h < c.resample_min_ess:
-            if self.resample_fn is not None:
-                out = self.resample_fn(key, weights_norm, bank16)
-                resampled16, most = out.resampled, out.most
-                state = state.replace(resample_clipped=state.resample_clipped
-                                      + out.clipped.to(torch.int32))
-            elif c.use_pallas_resample:
-                resampled16, most, decoded = resample_bank(key, weights_norm, bank16,
-                                                           _sort_resample, self.host)
-                (self.decoded_frames if decoded else self.fallback_frames).append(self.frames)
+        with trace.span("resample"):
+            if "resample" in c.debug_skip:
+                resampled16, most = bank16, self.bank.argmax(weights_norm)
+            elif c.resample_min_ess <= 0.0 or ess_h < c.resample_min_ess:
+                if self.resample_fn is not None:
+                    out = self.resample_fn(key, weights_norm, bank16)
+                    resampled16, most = out.resampled, out.most
+                    state = state.replace(resample_clipped=state.resample_clipped
+                                          + out.clipped.to(torch.int32))
+                elif c.use_pallas_resample:
+                    resampled16, most, decoded = resample_bank(key, weights_norm, bank16,
+                                                               _sort_resample, self.host)
+                    (self.decoded_frames if decoded else self.fallback_frames).append(self.frames)
+                else:
+                    resample = (stratified_resample_closed if c.use_closed_form_resample
+                                else stratified_resample_soa)
+                    anc, _counts, most = resample(key, weights_norm)
+                    resampled16 = resample_gather(bank16, anc)
             else:
-                resample = (stratified_resample_closed if c.use_closed_form_resample
-                            else stratified_resample_soa)
-                anc, _counts, most = resample(key, weights_norm)
-                resampled16 = resample_gather(bank16, anc)
-        else:
-            resampled16, most = bank16, argmax_idx
+                resampled16, most = bank16, argmax_idx
 
-        pre_gn = self.bank.pick_lane(bank16, most).reshape(4, 4)
-        tol_pf = dyn.back_projection_pixel_tolerance_pf
-        _, pairs_1, _ = weight_particles(self.camera, pre_gn[None], self.markers_h,
-                                         self.marker_mask, det.xy, det.mask, tol_pf,
-                                         dyn.back_projection_pixel_tolerance, self.downgrade)
-        base_pairs = pairs_1[0]
-        m_cap = self.markers_h.shape[0]
-        marker_ids = torch.arange(m_cap, device=dev)
-        minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
-        dfm_base = torch.max(torch.where(base_pairs[:, 0][None, :] == marker_ids[:, None],
-                                         base_pairs[:, 1][None, :], minus1), dim=1).values
-        if c.gn_hypotheses <= 1:
-            dfm_h = dfm_base[None]
-        else:
-            uv0 = project(self.camera, pre_gn, self.markers_h)
-            dd = det.xy[None, :, :] - uv0[:, None, :]
-            d2m = torch.sum(dd * dd, dim=-1)
-            big = torch.full((), 1e12, device=dev)
-            d2m = torch.where(det.mask[None, :], d2m, big)
-            bound = torch.clamp(dfm_base, 0, det.xy.shape[0] - 1)
-            d2_alt = torch.where(torch.arange(det.xy.shape[0], device=dev)[None, :] == bound[:, None],
-                                 big, d2m)
-            alt_min = torch.min(d2_alt, dim=1).values
-            alt = torch.argmax((d2_alt == alt_min[:, None]).to(torch.int32), dim=1).to(torch.int32)
-            alt_ok = (alt_min <= tol_pf * tol_pf) & (dfm_base >= 0)
-            alt = torch.where(alt_ok, alt, dfm_base)
-            eye_m = torch.eye(m_cap, dtype=torch.bool, device=dev)
-            swap_h = torch.where(eye_m, alt[None, :], dfm_base[None, :])
-            drop_h = torch.where(eye_m, minus1, dfm_base[None, :])
-            dfm_h = torch.cat([dfm_base[None], swap_h, drop_h])
+        with trace.span("refine"):
+            pre_gn = self.bank.pick_lane(bank16, most).reshape(4, 4)
+            tol_pf = dyn.back_projection_pixel_tolerance_pf
+            _, pairs_1, _ = weight_particles(self.camera, pre_gn[None], self.markers_h,
+                                             self.marker_mask, det.xy, det.mask, tol_pf,
+                                             dyn.back_projection_pixel_tolerance, self.downgrade)
+            base_pairs = pairs_1[0]
+            m_cap = self.markers_h.shape[0]
+            marker_ids = torch.arange(m_cap, device=dev)
+            minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
+            dfm_base = torch.max(torch.where(base_pairs[:, 0][None, :] == marker_ids[:, None],
+                                             base_pairs[:, 1][None, :], minus1), dim=1).values
+            if c.gn_hypotheses <= 1:
+                dfm_h = dfm_base[None]
+            else:
+                uv0 = project(self.camera, pre_gn, self.markers_h)
+                dd = det.xy[None, :, :] - uv0[:, None, :]
+                d2m = torch.sum(dd * dd, dim=-1)
+                big = torch.full((), 1e12, device=dev)
+                d2m = torch.where(det.mask[None, :], d2m, big)
+                bound = torch.clamp(dfm_base, 0, det.xy.shape[0] - 1)
+                slots = torch.arange(det.xy.shape[0], device=dev)
+                d2_alt = torch.where(slots[None, :] == bound[:, None], big, d2m)
+                alt_min = torch.min(d2_alt, dim=1).values
+                alt = torch.argmax((d2_alt == alt_min[:, None]).to(torch.int32),
+                                   dim=1).to(torch.int32)
+                alt_ok = (alt_min <= tol_pf * tol_pf) & (dfm_base >= 0)
+                alt = torch.where(alt_ok, alt, dfm_base)
+                eye_m = torch.eye(m_cap, dtype=torch.bool, device=dev)
+                swap_h = torch.where(eye_m, alt[None, :], dfm_base[None, :])
+                drop_h = torch.where(eye_m, minus1, dfm_base[None, :])
+                dfm_h = torch.cat([dfm_base[None], swap_h, drop_h])
 
-        corr_masks = (dfm_h >= 0) & self.marker_mask[None, :]
-        n_h = corr_masks.shape[0]
-        poses0 = pre_gn[None].expand(n_h, 4, 4)
-        if c.use_pallas_gn:
-            res = gauss_newton_refine_batched(self.camera, poses0, self.markers_h, det.xy, dfm_h,
-                                              corr_masks, c.gn_max_iterations,
-                                              c.gn_convergence_tol)
-        else:
-            corrs = torch.stack([marker_ids[None, :].expand(n_h, m_cap).to(dfm_h.dtype), dfm_h],
-                                dim=-1)
-            res = gauss_newton_refine(self.camera, poses0, self.markers_h, det.xy, corrs,
-                                      corr_masks, c.gn_max_iterations, c.gn_convergence_tol)
-        n_pairs = torch.sum(corr_masks, dim=-1).float()
-        local = torch.linalg.norm(res.pose[:, :3, 3] - pre_gn[:3, 3][None], dim=-1) <= c.gn_step_radius
-        feasible = (res.max_residual <= c.gn_residual_gate) & (n_pairs > 0) & local
-        pref = n_pairs - 1e-3 * torch.arange(n_h, dtype=torch.float32, device=dev)
-        pref = torch.where(feasible, pref, torch.full((), float("-inf"), device=dev))
-        any_feasible = torch.any(feasible)
-        best_h = torch.where(any_feasible, torch.argmax(pref), torch.zeros((), dtype=torch.int64,
-                                                                          device=dev))
-        pick = lambda x: x.index_select(0, best_h.reshape(1))[0]
-        pose = torch.where(any_feasible, pick(res.pose), pre_gn)
-        jump = torch.max(torch.abs(pose[:3, :3] - pre_gn[:3, :3])) >= dyn.jump_threshold
-        final_pose = pose
-        if c.jump_translation_radius > 0.0:
-            teleport = pred_trustworthy & (torch.linalg.norm(pose[:3, 3] - predicted[:3, 3])
-                                           > c.jump_translation_radius)
-            final_pose = torch.where(teleport, predicted, pose)
-            jump = jump | teleport
-        state = state.replace(
-            predicted_pose=final_pose,
-            covariance=pick(res.covariance),
-            pose_updated=self._t(True, torch.bool),
-            num_gn_iterations=pick(res.num_iterations),
-            resampled=resampled16,
-            weights=weights_norm,
-            bank=bank16,
-        )
-        return self._update_pose_times(state, t, final_pose), jump
+            corr_masks = (dfm_h >= 0) & self.marker_mask[None, :]
+            n_h = corr_masks.shape[0]
+            poses0 = pre_gn[None].expand(n_h, 4, 4)
+            if c.use_pallas_gn:
+                res = gauss_newton_refine_batched(self.camera, poses0, self.markers_h, det.xy,
+                                                  dfm_h, corr_masks, c.gn_max_iterations,
+                                                  c.gn_convergence_tol)
+            else:
+                corrs = torch.stack([marker_ids[None, :].expand(n_h, m_cap).to(dfm_h.dtype), dfm_h],
+                                    dim=-1)
+                res = gauss_newton_refine(self.camera, poses0, self.markers_h, det.xy, corrs,
+                                          corr_masks, c.gn_max_iterations, c.gn_convergence_tol)
+            n_pairs = torch.sum(corr_masks, dim=-1).float()
+            local = (torch.linalg.norm(res.pose[:, :3, 3] - pre_gn[:3, 3][None], dim=-1)
+                     <= c.gn_step_radius)
+            feasible = (res.max_residual <= c.gn_residual_gate) & (n_pairs > 0) & local
+            pref = n_pairs - 1e-3 * torch.arange(n_h, dtype=torch.float32, device=dev)
+            pref = torch.where(feasible, pref, torch.full((), float("-inf"), device=dev))
+            any_feasible = torch.any(feasible)
+            best_h = torch.where(any_feasible, torch.argmax(pref),
+                                 torch.zeros((), dtype=torch.int64, device=dev))
+            pick = lambda x: x.index_select(0, best_h.reshape(1))[0]
+            pose = torch.where(any_feasible, pick(res.pose), pre_gn)
+            jump = torch.max(torch.abs(pose[:3, :3] - pre_gn[:3, :3])) >= dyn.jump_threshold
+            final_pose = pose
+            if c.jump_translation_radius > 0.0:
+                teleport = pred_trustworthy & (torch.linalg.norm(pose[:3, 3] - predicted[:3, 3])
+                                               > c.jump_translation_radius)
+                final_pose = torch.where(teleport, predicted, pose)
+                jump = jump | teleport
+            state = state.replace(
+                predicted_pose=final_pose,
+                covariance=pick(res.covariance),
+                pose_updated=self._t(True, torch.bool),
+                num_gn_iterations=pick(res.num_iterations),
+                resampled=resampled16,
+                weights=weights_norm,
+                bank=bank16,
+            )
+            return self._update_pose_times(state, t, final_pose), jump
 
 
 def _sort_resample(key, weights, bank16):

@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from .sync import upload
+
 MASK = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
 _ROT_B = (17, 29, 16, 24)
@@ -95,14 +97,14 @@ def uniform(key, shape, device="cpu", minval=0.0, maxval=1.0) -> torch.Tensor:
     u = uniform_at(key, torch.arange(math.prod(shape), device=device)).reshape(shape)
     if isinstance(minval, float) and isinstance(maxval, float) and (minval, maxval) == (0.0, 1.0):
         return u
-    lo = torch.as_tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.as_tensor(maxval, dtype=torch.float32, device=device)
+    lo = upload(minval, device)
+    hi = upload(maxval, device)
     return torch.maximum(lo, u * (hi - lo) + lo)
 
 
 def bernoulli(key, p: float, shape, device="cpu") -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)` for a float32 `p`: `uniform < p`."""
-    return (uniform(key, shape) < p).to(device)
+    return upload(uniform(key, shape) < p, device, torch.bool)
 
 
 def rademacher(key, shape, device="cpu") -> torch.Tensor:
@@ -122,10 +124,10 @@ def randint(key, shape, minval, maxval, device="cpu") -> torch.Tensor:
             raise ValueError(f"randint bounds must lie in int32's range, got {v}")
     k1, k2 = split(key)
     counters = torch.arange(math.prod(shape))
-    upper = random_bits(k1, counters).reshape(shape).to(device)
-    lower = random_bits(k2, counters).reshape(shape).to(device)
-    lo_v = torch.as_tensor(minval, device=device).to(torch.int64)
-    hi_v = torch.as_tensor(maxval, device=device).to(torch.int64)
+    upper = upload(random_bits(k1, counters).reshape(shape), device, torch.int64)
+    lower = upload(random_bits(k2, counters).reshape(shape), device, torch.int64)
+    lo_v = upload(minval, device, torch.int64)
+    hi_v = upload(maxval, device, torch.int64)
     span = torch.where(hi_v <= lo_v, torch.ones_like(hi_v), (hi_v - lo_v) & MASK)
     # 2**32 % span as uint32 computes it: 0 for a span above 2**16, so no
     # product below exceeds 2**32

@@ -14,6 +14,7 @@ import torch
 
 from pf_monocular_pose_estimator_tpu.io.cli import main as ref_main
 from pf_monocular_pose_estimator_tpu_torch.io import cli
+from pf_monocular_pose_estimator_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -176,7 +177,8 @@ def test_checkpoint_holds_the_resolved_particle_count(tmp_path, argv, n):
 
 def test_replicated_targets_and_profile(tmp_path):
     """two_targets.yaml replicates one marker set over two targets; --profile
-    writes a torch.profiler trace."""
+    writes a torch.profiler trace, with the frame step's spans, and leaves
+    tracing off."""
     summary = run(cli.main, ["--config", os.path.join(EXPERIMENTS, "two_targets.yaml"),
                              "--frames", "2", "--particles", "64", "--profile",
                              str(tmp_path / "trace"), *CPU])
@@ -184,6 +186,8 @@ def test_replicated_targets_and_profile(tmp_path):
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    assert {"multi.frame", "tracker.frame", "detect"} <= {e.get("name") for e in events}
+    assert trace.span("detect") is trace.span("refine") and trace.take() == []
 
 
 def test_cli_runs_on_the_card_unless_told_otherwise(tmp_path):
