@@ -442,6 +442,41 @@ def gn_inputs(d, cam, markers, device, det_xy=None, seed=1):
     return (scal_d, poses0.reshape(b, 16).contiguous(), mark, du, dv, cmask.float())
 
 
+def refine_inputs(d, cam, markers, device, det_xy):
+    """The fused refine's main-path input: golden frame 10's pose 0.002 off as
+    the picked particle, M = 5 markers, K = 16 detection slots (`det_xy`'s
+    five and a sixth 3 px from the first, which the swap hypotheses bind),
+    the default tolerances -> (refine_frame's arguments, refine_hypotheses')."""
+    import torch
+    from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3
+    from pf_monocular_pose_estimator_tpu_torch.ops.blob import Detections
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+    from pf_monocular_pose_estimator_tpu_torch.utils.dynamic import DynamicParams
+
+    rng = np.random.default_rng(2)
+    gt = torch.from_numpy(d["poses"][10]).to(device)
+    twist = torch.from_numpy(rng.normal(0.0, 0.002, 6).astype(np.float32)).to(device)
+    pre_gn = exp_se3(twist) @ gt
+    xy = det_xy.clone()
+    xy[5] = xy[0] + torch.tensor([3.0, -1.0], device=device)
+    mask = torch.zeros(16, dtype=torch.bool, device=device)
+    mask[:6] = True
+    det = Detections(xy=xy, xy_distorted=xy, mask=mask, area=xy[:, 0], occluded=mask,
+                     injected=mask)
+    config = TrackerConfig(**MAIN)
+    dyn = DynamicParams.from_config(config, device)
+    marker_mask = torch.ones(5, dtype=torch.bool, device=device)
+    trust = torch.tensor(True, device=device)
+    scal = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy]).float()
+    fused = (scal, pre_gn, markers.T.contiguous(), marker_mask, xy, mask,
+             dyn.back_projection_pixel_tolerance_pf, dyn.jump_threshold, gt, trust,
+             config.gn_max_iterations, config.gn_convergence_tol, config.gn_residual_gate,
+             config.gn_step_radius, config.jump_translation_radius, config.gn_hypotheses > 1)
+    chain = (cam, pre_gn, markers, marker_mask, torch.zeros(5, dtype=torch.bool, device=device),
+             det, dyn, gt, trust, config)
+    return fused, chain
+
+
 def pf_inputs(d, cam, markers, device, cam_move_inv=None):
     """Kernel B's main-path input: N = 100,000 poses scattered 0.01 around
     golden frame 10's, a step, the five projected markers plus 0.3 px of
@@ -760,6 +795,50 @@ def check_kernels(device, d, cam, markers):
                      device_ms=device_time_ms(lambda: rk.gn_refine(*args, 25, 1e-4)),
                      plain_ms=time_ms(lambda: rk.gn_refine_plain(*args, 25, 1e-4), 3),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # the fused refine: the picked particle's pairs, 11 hypotheses, D's iterations,
+    # the pick and the covariance in one launch, against the plain twin; the
+    # layer op by op (refine_hypotheses with D, the parent's path) is its yardstick
+    from pf_monocular_pose_estimator_tpu_torch.tracker.step import refine_hypotheses
+
+    rf_args, chain_args = refine_inputs(d, cam, markers, device, det_xy)
+    got, want = rk.refine_frame(*rf_args), rk.refine_frame_plain(*rf_args)
+    chain = refine_hypotheses(*chain_args, batched=True)
+    torch.cuda.synchronize()
+    for name in ("pose", "num_iterations", "jump", "info"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), f"refine_frame: {name}"
+    err_f = float((got.covariance - want.covariance).abs().max())
+    err_c = max(float((got.pose - chain[0]).abs().max()),
+                float((got.covariance - chain[1]).abs().max()))
+    print(f"[kernels] refine_frame M=5, K=16, 11 hypotheses: picked {got.info.tolist()}, "
+          f"covariance max abs err {err_f} against the twin; pose and covariance "
+          f"{err_c} from the op-by-op layer with D")
+    assert err_f == 0.0 and err_c == 0.0, "refine_frame: pose or covariance differ"
+    assert int(got.num_iterations) == int(chain[2]) and bool(got.jump) == bool(chain[3])
+    # D's work on the 11 hypotheses (their iterations from the twin) and the
+    # pairs' 80 distances; inputs and outputs are a few hundred bytes
+    scal_f, pre_f, mark_f, mmask_f, xy_f, dmask_f, tol_f = rf_args[:7]
+    dfm = rk.frame_hypotheses(scal_f, pre_f, mark_f, mmask_f, xy_f, dmask_f, tol_f)
+    pick = dfm.clamp(0, 15)
+    st = rk.gn_refine_plain(scal_f, pre_f.reshape(1, 16).expand(len(dfm), 16), mark_f[:3],
+                            xy_f[:, 0][pick], xy_f[:, 1][pick], ((dfm >= 0) & mmask_f).float(),
+                            25, 1e-4)[1]
+    iters = float(st[:, 2].sum()) + 2 * len(dfm)
+    b_ms, b_by = bound(4 * (16 + 20 + 48 + 16 + 36 + 20), iters * (100 * 5 + 450) + 80 * 10)
+    fused = lambda: rk.refine_frame(*rf_args)
+    layer = lambda: refine_hypotheses(*chain_args, batched=True)
+    rows.append(dict(name="refine_frame", route="cuda",
+                     source="pf_monocular_pose_estimator_tpu_torch/csrc/gn_refine.cu",
+                     replaces="tracker/step.py::refine_hypotheses (the refine layer with D)",
+                     max_abs_err=err_f, ms=time_ms(fused), device_ms=device_time_ms(fused),
+                     plain_ms=time_ms(lambda: rk.refine_frame_plain(*rf_args), 3),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     profiled_us=busy_us_per_call(fused)[0], chain_ms=time_ms(layer, 5),
+                     chain_profiled_us=busy_us_per_call(layer)[0]))
+    r = rows[-1]
+    print(f"[timing] {card_line()}: refine layer op by op with D: event {r['chain_ms'] * 1e3:.1f} "
+          f"us, device busy {r['chain_profiled_us']} us a call; fused: event "
+          f"{r['ms'] * 1e3:.1f} us, device busy {r['profiled_us']} us a call")
     return rows
 
 
@@ -1317,13 +1396,16 @@ def report(device, d, cam, markers, cuda_lib, dk, rk, sk, wk, hk):
     blocks = ring_blocks(shard_lanes(LocalMesh(p), bank_e), ring_deltas(p - 1, p))
     pos = ring_ancestor_positions(anc, p, ring_deltas(p - 1, p))
     # one trace for all five: a run's later traces have come back without device time
+    rf_args = refine_inputs(d, cam, markers, device, pf_inputs(d, cam, markers, device)[3])[0]
     times = launch_times_us(lambda: (dk.detect_stats(crop, prm, 5, True, 12, 16),
                                      rk.gn_refine(*gn_args, 25, 1e-4),
+                                     rk.refine_frame(*rf_args),
                                      sk.pf_step(bank, prm_b, keys, 5, 16),
                                      sk.pf_step(bank, prm_b, keys, 5, 16, want_pairs=True),
                                      wk.weight(bank_e, wprm, 5, 16),
                                      hk.ring_gather(blocks, pos)))
-    print(f"[report] {card_line()}: launches of kernels A (detect_stats), D (gn_refine), B "
+    print(f"[report] {card_line()}: launches of kernels A (detect_stats), D (gn_refine), the "
+          f"fused refine (refine_frame), B "
           f"(pf_step, weights only and with pairs), E (pf_weight) and H (ring_gather, {p} "
           f"shards) at N={N_PARTICLES} (us): {times}")
 
@@ -1490,7 +1572,7 @@ def shape_phase(device, d, card, counted) -> dict:
           f"flags {card_ten.flags}, CPU {cpu_ten.flags}; card translation errors (mm) "
           f"{[round(e * 1e3, 3) for e in card_ten.errs]}")
     assert card_ten.flags == cpu_ten.flags, "[shapes] ten-marker flags differ from the CPU's"
-    for name in ("pf_step", "gn_refine", "detect_stats"):
+    for name in ("pf_step", "refine_frame", "detect_stats"):
         assert card_ten.launches[name] > 0, f"[shapes] ten markers never launched {name}"
     out.update(twin=dict(flags=card_twin.flags.tolist(), launches=card_twin.launches),
                ten_markers=dict(flags=card_ten.flags, errors_m=card_ten.errs,
@@ -1599,14 +1681,14 @@ def wide_phase(device, d, cam, markers, card, counted_replay) -> dict:
     of A, #2, B, C and D, the device time of a warm frame and the card's
     idle share (`idle_share`)."""
     run = counted_replay("wide", WIDE_REPLAY)
-    for name in ("threshold_blur", "detect_stats", "pf_step", "gn_refine"):
+    for name in ("threshold_blur", "detect_stats", "pf_step", "refine_frame"):
         assert run.launches[name] > 0, f"[wide] never launched {name}"
     idle = idle_share(device, d, cam, markers, overrides=WIDE_REPLAY)
     out = dict(config=WIDE_REPLAY, updated=int(run.updated.sum()), frames=len(run.updated),
                ate_mm=run.ate * 1e3, orientation_deg=run.ori,
                launches={name: run.launches[name] for name in
                          ("detect_stats", "threshold_blur", "pf_step", "resample_gather",
-                          "gn_refine")},
+                          "refine_frame")},
                idle=idle, card=card)
     print(f"[wide] {card}: {out}")
     return out
@@ -1726,7 +1808,7 @@ def ported_options(device, d, cam, markers, card, main_run, counted_replay, warm
     from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
 
     out = {}
-    pf_kernels = ("detect_stats", "pf_step", "gn_refine")
+    pf_kernels = ("detect_stats", "pf_step", "refine_frame")
 
     def launched(tag, run, names):
         missing = [n for n in names if run.launches[n] == 0]
@@ -1803,7 +1885,7 @@ def ported_options(device, d, cam, markers, card, main_run, counted_replay, warm
     # 13. IPE: no particle filter, so no kernel B and no batched GN
     ipe = counted_replay("ipe", IPE, n_particles=IPE_PARTICLES)
     launched("ipe", ipe, ("threshold_blur", "detect_stats"))
-    assert ipe.launches["pf_step"] == 0 and ipe.launches["gn_refine"] == 0
+    assert ipe.launches["pf_step"] == 0 and ipe.launches["refine_frame"] == 0
     reinit = np.flatnonzero(ipe.flags[1:] == 0).tolist()
     assert not reinit, f"ipe: re-initialised on frames {[f + 1 for f in reinit]}"
     idle = idle_share(device, d, cam, markers, overrides=IPE, n_particles=IPE_PARTICLES)
@@ -1956,7 +2038,7 @@ def multi_target_phases(device, card, counted, main_args) -> dict:
     cam = load_camera_calibration(TWO_UAV_EXPERIMENT["camera"], device)
     markers_t, masks_t = pad_marker_sets([demo_markers(device), second_markers(device)])
     gt = d["poses"]
-    pf_kernels = ("threshold_blur", "detect_stats", "pf_step", "gn_refine")
+    pf_kernels = ("threshold_blur", "detect_stats", "pf_step", "refine_frame")
 
     def launched(tag, run, names):
         missing = [n for n in names if run.launches[n] == 0]
@@ -2000,7 +2082,7 @@ def multi_target_phases(device, card, counted, main_args) -> dict:
     sharded = counted("multi-sharded", multi_replay, device, d, cam, markers_t, masks_t,
                       N_PARTICLES, mesh=mesh, **ring)
     launched("multi-sharded", sharded, ("threshold_blur", "detect_stats", "pf_step",
-                                        "ring_gather", "gn_refine"))
+                                        "ring_gather", "refine_frame"))
     rows_sh = multi_bars("multi-sharded", sharded, gt, 0.9, max_median=0.02)
     differ = np.argwhere(sharded.flags != multi.flags).tolist()
     assert not differ, f"multi-sharded: flags differ from phase 15's at (frame, target) {differ}"
@@ -2096,7 +2178,7 @@ def multi_target_phases(device, card, counted, main_args) -> dict:
     assert render["max_level_diff"] <= 1, f"synthetic: frames {render}"
     mh = counted("multihost", lambda: SimpleNamespace(
         line=distributed.run_multihost(["--frames", str(SHORT_FRAMES)])))
-    launched("multihost", mh, ("threshold_blur", "detect_stats", "pf_step", "gn_refine"))
+    launched("multihost", mh, ("threshold_blur", "detect_stats", "pf_step", "refine_frame"))
     print(f"[multihost] {card}: {mh.line}")
     assert mh.line["tracked"] == mh.line["frames"] == SHORT_FRAMES, f"multihost: {mh.line}"
     out["synthetic"] = render
@@ -2244,9 +2326,9 @@ def cli_phase(device, card, counted, main_args, main_run, real_run, multi_4k_run
                 v = np.load(video)["frames"]
                 assert v.shape == (60, 480, 752, 3) and v.dtype == np.uint8, v.shape
             elif name == "ipe_legacy":
-                assert launches["pf_step"] == launches["gn_refine"] == 0, f"cli ipe: {launches}"
+                assert launches["pf_step"] == launches["refine_frame"] == 0, f"cli ipe: {launches}"
             else:
-                assert launches["pf_step"] > 0 and launches["gn_refine"] > 0, f"cli {name}"
+                assert launches["pf_step"] > 0 and launches["refine_frame"] > 0, f"cli {name}"
 
     # the frame pipe: golden frames at 50 fps into the main-path tracker
     pipe = counted("cli pipe", pipe_replay, device, d, cam, markers)
@@ -2315,15 +2397,15 @@ def bench_phase(counted) -> list:
         assert line["orientation_deg"] < 1.5, f"{tag}: orientation {line['orientation_deg']:.2f}"
         gather, other = (("ring_gather", "resample_gather") if "--sharded" in flags
                          else ("resample_gather", "ring_gather"))
-        for name in ("threshold_blur", "detect_stats", "pf_step", "gn_refine", gather):
+        for name in ("threshold_blur", "detect_stats", "pf_step", "refine_frame", gather):
             assert launches[name] > 0, f"{tag}: never launched {name}"
         assert launches[other] == 0, f"{tag}: launched {other}"
         lines.append(dict(line, launches=launches))
     return lines
 
 
-# the kernels of the main path: A (#1), #2, B, C and D
-MAIN_KERNELS = ("detect_stats", "threshold_blur", "pf_step", "resample_gather", "gn_refine")
+# the kernels of the main path: A (#1), #2, B, C and the fused refine (D inside)
+MAIN_KERNELS = ("detect_stats", "threshold_blur", "pf_step", "resample_gather", "refine_frame")
 ACCURACY_RUN = ["--frames", "40"]
 SWEEP_GRIDS = ("reference_grid.yaml", "fault_grid.yaml")
 
@@ -2448,7 +2530,8 @@ def main() -> int:
                 "resample_decode": (fk.decode, "launches"),
                 "monotone_gather": (gk.windowed_gather, "launches"),
                 "ring_gather": (hk.ring_gather, "launches"),
-                "gn_refine": (rk.gn_refine, "launches")}
+                "gn_refine": (rk.gn_refine, "launches"),
+                "refine_frame": (rk.refine_frame, "launches")}
 
     def counted(tag, fn, *args, **kwargs):
         """fn(*args, **kwargs) with every launch count set to 0 just before
@@ -2511,7 +2594,7 @@ def main() -> int:
 
     # 4. replay through the main path, counters from zero; 5. a warm second replay
     main_run = counted_replay("replay")
-    for name in ("threshold_blur", "detect_stats", "pf_step", "gn_refine"):
+    for name in ("threshold_blur", "detect_stats", "pf_step", "refine_frame"):
         assert main_run.launches[name] > 0, f"the replay never launched {name}"
     if main_run.launches["resample_gather"] == 0:
         print("[replay] no frame resampled (the ESS gate never fired)")
@@ -2525,7 +2608,8 @@ def main() -> int:
     slice_run = counted_replay("slice", SLICE)
     print(f"[slice] resampling took kernel F's result on frames {slice_run.step.decoded_frames}; "
           f"fell back to the sort path (kernel C) on frames {slice_run.step.fallback_frames}")
-    for name in ("pf_weight", "resample_decode", "threshold_blur", "detect_stats", "gn_refine"):
+    for name in ("pf_weight", "resample_decode", "threshold_blur", "detect_stats",
+                 "refine_frame"):
         assert slice_run.launches[name] > 0, f"the slice never launched {name}"
     assert slice_run.launches["pf_step"] == 0, "the slice launched pf_step"
     slice_warm = warm_replay("slice", SLICE)
@@ -2556,7 +2640,7 @@ def main() -> int:
         f"sharded: {got['ring_gather']} launches of kernel H, not one a resampling " \
         f"({main_run.launches['resample_gather']})"
     assert got["resample_gather"] == 0, "sharded: launched the unsharded gather"
-    for name in ("threshold_blur", "detect_stats", "gn_refine"):
+    for name in ("threshold_blur", "detect_stats", "refine_frame"):
         assert got[name] > 0, f"the sharded replay never launched {name}"
     print(f"[sharded] pf_step {got['pf_step']} launches (main path "
           f"{main_run.launches['pf_step']} x {MESH_SHARDS} shards), ring_gather "

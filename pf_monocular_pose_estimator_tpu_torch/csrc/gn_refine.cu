@@ -39,6 +39,8 @@
 // built with --fmad=false, so both round alike.
 
 #include <cuda_runtime.h>
+#include <float.h>
+#include <limits.h>
 #include <math.h>
 
 namespace {
@@ -242,43 +244,26 @@ __device__ __forceinline__ void exp_rows(const float dt[6], float e[12]) {
   e[8] = r20; e[9] = r21; e[10] = r22; e[11] = v20 * rx + v21 * ry + v22 * rz;
 }
 
-// scal: [fx, fy, cx, cy, ...]; mark: (3, M) rows mx, my, mz; du/dv/mask: (b, M)
-// out_pose: (b, 16); stats: (b, 8) [err0, err, n_iter, max_resid, done,
-// diverged, 0, 0]; amat: (b, 36) final normal matrix (undamped).
-// One block, one warp, a hypothesis (one warp a block measured faster on the
-// H100 than 11 warps in one block: PERF.md, kernel D).  M > 0: M markers;
-// M = 0: m_rt <= kMaxM markers.
+// One hypothesis's run on one warp, lane q < m holding pair q (its marker
+// mx, my, mz and detection du, dv, masked by mk): the full budget of
+// iterations from pose p (updated in place; a frozen hypothesis leaves the
+// loop, which changes no output), then the normal-equation sums at the
+// final pose.  Returns this lane's sum there (lanes 0..27: A's upper
+// triangle, b, the error); err0, n_iter, done and max_resid as D reports
+// them.  Kernel D and the fused refine run it alike.
 template <int M>
-__global__ void gn_refine_kernel(const float* __restrict__ scal, const float* __restrict__ poses,
-                                 const float* __restrict__ mark, const float* __restrict__ du_all,
-                                 const float* __restrict__ dv_all,
-                                 const float* __restrict__ mask_all, int max_iter,
-                                 float tol, float* __restrict__ out_pose,
-                                 float* __restrict__ stats, float* __restrict__ amat, int m_rt) {
-  __shared__ float stage[(M > 0 ? M : kMaxM) * kRow];
-  const int m = M > 0 ? M : m_rt;
-  const int lane = threadIdx.x;
-  const int h = blockIdx.x;
-  const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
-  float mx = 0.0f, my = 0.0f, mz = 0.0f, du = 0.0f, dv = 0.0f, mk = 0.0f;
-  if (lane < m) {
-    mx = mark[lane];
-    my = mark[m + lane];
-    mz = mark[2 * m + lane];
-    du = du_all[h * m + lane];
-    dv = dv_all[h * m + lane];
-    mk = mask_all[h * m + lane];
-  }
+__device__ __forceinline__ float gn_warp(float p[16], int lane, int m, float mx, float my,
+                                         float mz, float du, float dv, float mk, float fx,
+                                         float fy, float cx, float cy, float* stage, int max_iter,
+                                         float tol, float& err0, float& n_iter, float& done,
+                                         float& max_resid) {
   int o0, o1, o2, o3;
   term_offsets(lane, o0, o1, o2, o3);
   const int diag = lane < 6 ? upper(lane, lane) : 0;
-  float p[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) p[i] = poses[h * 16 + i];
   float sum = pair_sums<M>(p, lane, m, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1,
-                     o2, o3);
-  const float err0 = __shfl_sync(kFull, sum, 27);
-  float done = 0.0f, n_iter = 0.0f;
+                           o2, o3);
+  err0 = __shfl_sync(kFull, sum, 27);
+  done = 0.0f, n_iter = 0.0f;
   for (int it = 0; it < max_iter && !(done > 0.0f); ++it) {
     sum = pair_sums<M>(p, lane, m, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1,
                        o2, o3);
@@ -325,13 +310,56 @@ __global__ void gn_refine_kernel(const float* __restrict__ scal, const float* __
   }
   sum = pair_sums<M>(p, lane, m, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage, o0, o1,
                      o2, o3);
-  float max_resid = 0.0f;
+  if constexpr (M > 0) m = M;
+  max_resid = 0.0f;
 #pragma unroll
   for (int q = 0; q < m; ++q) {
     const float ru = stage[q * kRow + 12], rv = stage[q * kRow + 13];
     const float r = sqrtf(ru * ru + rv * rv);
     max_resid = q == 0 ? r : fmaxf(max_resid, r);
   }
+  return sum;
+}
+
+// The normal matrix entry e (row-major 6x6) from the lanes' sums.
+__device__ __forceinline__ float amat_entry(float sum, int e) {
+  const int i = e / 6, j = e % 6;
+  return __shfl_sync(kFull, sum, i <= j ? upper(i, j) : upper(j, i));
+}
+
+// scal: [fx, fy, cx, cy, ...]; mark: (3, M) rows mx, my, mz; du/dv/mask: (b, M)
+// out_pose: (b, 16); stats: (b, 8) [err0, err, n_iter, max_resid, done,
+// diverged, 0, 0]; amat: (b, 36) final normal matrix (undamped).
+// One block, one warp, a hypothesis (one warp a block measured faster on the
+// H100 than 11 warps in one block: PERF.md, kernel D).  M > 0: M markers;
+// M = 0: m_rt <= kMaxM markers.
+template <int M>
+__global__ void gn_refine_kernel(const float* __restrict__ scal, const float* __restrict__ poses,
+                                 const float* __restrict__ mark, const float* __restrict__ du_all,
+                                 const float* __restrict__ dv_all,
+                                 const float* __restrict__ mask_all, int max_iter,
+                                 float tol, float* __restrict__ out_pose,
+                                 float* __restrict__ stats, float* __restrict__ amat, int m_rt) {
+  __shared__ float stage[(M > 0 ? M : kMaxM) * kRow];
+  const int m = M > 0 ? M : m_rt;
+  const int lane = threadIdx.x;
+  const int h = blockIdx.x;
+  const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
+  float mx = 0.0f, my = 0.0f, mz = 0.0f, du = 0.0f, dv = 0.0f, mk = 0.0f;
+  if (lane < m) {
+    mx = mark[lane];
+    my = mark[m + lane];
+    mz = mark[2 * m + lane];
+    du = du_all[h * m + lane];
+    dv = dv_all[h * m + lane];
+    mk = mask_all[h * m + lane];
+  }
+  float p[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) p[i] = poses[h * 16 + i];
+  float err0, n_iter, done, max_resid;
+  const float sum = gn_warp<M>(p, lane, m, mx, my, mz, du, dv, mk, fx, fy, cx, cy, stage,
+                               max_iter, tol, err0, n_iter, done, max_resid);
   const float err = __shfl_sync(kFull, sum, 27);
   const bool diverged = err > err0;
 #pragma unroll
@@ -349,10 +377,368 @@ __global__ void gn_refine_kernel(const float* __restrict__ scal, const float* __
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int e = min(lane + 32 * r, 35), i = e / 6, j = e % 6;
-    const float v = __shfl_sync(kFull, sum, i <= j ? upper(i, j) : upper(j, i));
+    const int e = min(lane + 32 * r, 35);
+    const float v = amat_entry(sum, e);
     if (lane + 32 * r < 36) amat[h * 36 + e] = v;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The fused refine: the track branch's whole refine layer in one launch
+// (`tracker/step.py::refine_hypotheses` op by op, `pf/refine_kernel.py::
+// refine_frame_plain` in this kernel's order).  From the picked particle's
+// pose pre_gn:
+//   1. its pairs: `pf/weight.py::weight_particles`' greedy matching on the
+//      K x M squared distances (cells of a masked detection or marker hold
+//      FLT_MAX / 4), its first minimum in flat index k * M + m, a step
+//      accepted while sqrt(d2) <= tol_pf and no earlier step failed, the
+//      chosen marker's column then retired.  Retiring a column changes no
+//      other column, so each column's least (d2, k) is found once and a step
+//      is a warp argmin over the M columns; a NaN cell in any column fails
+//      the first step, as torch.min's NaN does;
+//   2. the hypotheses: the base binding, for each marker its nearest other
+//      detection (`alt`, kept where within tol_pf and the marker is bound)
+//      and the marker dropped: 2M + 1 rows, or the base alone;
+//   3. kernel D's Gauss-Newton (`gn_warp`), one warp a hypothesis, warps
+//      looping over the rows where there are more rows than warps;
+//   4. the pick: the feasible hypothesis (largest residual within the gate,
+//      a pair at least, within the step radius) with most pairs, the first
+//      of equals (the first argmax of n_pairs - 1e-3 h); pre_gn where none
+//      is; then the rotation jump test and the teleport guard;
+//   5. the covariance of the picked hypothesis alone: `pf/refine.py::
+//      inv6_spd` of its normal matrix + 1e-8 I, the Jacobi-scaled block
+//      Schur inverse in that function's order (the 3x3 inverses by
+//      cofactors over the determinant, the 3x3 products as torch's batched
+//      matmul on the card sums them, so that the covariance equals what
+//      the layer op by op gives there).
+// Latency-bound like D (~0.2 MFLOP of dependent scalar math): one block,
+// the pairs and the pick on warp 0, the rows staged in shared memory.
+constexpr int kMaxK = 128;          // detection slots (pf/weight_kernel.py MAX_DETECTIONS)
+constexpr int kWideWarps = 16;      // warps of the runtime-count form (up to 65 rows)
+constexpr float kCap = FLT_MAX * 0.25f;  // weight_particles' masked-cell distance
+constexpr float kFar = 1e12f;            // the alternative search's masked-cell distance
+constexpr int kHypotheses = 1, kGuard = 2;  // `flags` bits
+
+template <int M>
+struct FrameShared {
+  static constexpr int kM = M > 0 ? M : kMaxM;
+  static constexpr int kRows = 2 * kM + 1;
+  static constexpr int kWarps = M > 0 ? kRows : kWideWarps;
+  float stage[kWarps][kM * kRow];
+  float pose[kRows][16];
+  float amat[kRows][36];
+  float resid[kRows];
+  float iters[kRows];
+  int pairs[kRows];
+  float det[kMaxK][2];
+  int det_ok[kMaxK];
+  int dfm[kM];
+  int alt[kM];
+};
+
+// 3x3 inverse by cofactors over the determinant (`pf/refine.py::_inv3`)
+__device__ __forceinline__ void inv3(const float m[3][3], float out[3][3]) {
+  const float a = m[0][0], b = m[0][1], c = m[0][2];
+  const float d = m[1][0], e = m[1][1], f = m[1][2];
+  const float g = m[2][0], h = m[2][1], i = m[2][2];
+  const float ca = e * i - f * h;
+  const float cb = -(d * i - f * g);
+  const float cc = d * h - e * g;
+  const float cd = -(b * i - c * h);
+  const float ce = a * i - c * g;
+  const float cf = -(a * h - b * g);
+  const float cg = b * f - c * e;
+  const float ch = -(a * f - c * d);
+  const float ci = a * e - b * d;
+  float det = a * ca + b * cb + c * cc;
+  det = fabsf(det) < 1e-30f ? 1e-30f : det;
+  out[0][0] = ca / det; out[0][1] = cd / det; out[0][2] = cg / det;
+  out[1][0] = cb / det; out[1][1] = ce / det; out[1][2] = ch / det;
+  out[2][0] = cc / det; out[2][1] = cf / det; out[2][2] = ci / det;
+}
+
+// out = op(a) @ b with op(a) = a or a^T, as torch's batched matmul sums it
+// on the card (cuBLAS): from 0, one fused multiply-add a term in index order
+template <bool TransA>
+__device__ __forceinline__ void mm3(const float a[3][3], const float b[3][3], float out[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc = __fmaf_rn(TransA ? a[k][i] : a[i][k], b[k][j], acc);
+      out[i][j] = acc;
+    }
+}
+
+// `pf/refine.py::inv6_spd` of one 6x6 matrix
+__device__ __forceinline__ void inv6_spd(const float a[6][6], float out[6][6]) {
+  float inv_d[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float d = sqrtf(fabsf(a[i][i]));
+    inv_d[i] = 1.0f / (d > 0.0f ? d : 1.0f);
+  }
+  float p[3][3], q[3][3], s[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      p[i][j] = a[i][j] * inv_d[i] * inv_d[j];
+      q[i][j] = a[i][3 + j] * inv_d[i] * inv_d[3 + j];
+      s[i][j] = a[3 + i][3 + j] * inv_d[3 + i] * inv_d[3 + j];
+    }
+  float p_inv[3][3], qt_pinv[3][3], qq[3][3], schur_inv[3][3], t1[3][3], t2[3][3], nq[3][3];
+  inv3(p, p_inv);
+  mm3<true>(q, p_inv, qt_pinv);
+  mm3<false>(qt_pinv, q, qq);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) qq[i][j] = s[i][j] - qq[i][j];
+  inv3(qq, schur_inv);
+  mm3<true>(qt_pinv, schur_inv, t1);  // qt_pinv^T @ schur_inv
+  mm3<false>(t1, qt_pinv, t2);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) nq[i][j] = -qt_pinv[i][j];
+  mm3<true>(nq, schur_inv, t1);  // (-qt_pinv)^T @ schur_inv: the top right block
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      out[i][j] = (p_inv[i][j] + t2[i][j]) * inv_d[i] * inv_d[j];
+      out[i][3 + j] = t1[i][j] * inv_d[i] * inv_d[3 + j];
+      out[3 + i][j] = t1[j][i] * inv_d[3 + i] * inv_d[j];
+      out[3 + i][3 + j] = schur_inv[i][j] * inv_d[3 + i] * inv_d[3 + j];
+    }
+}
+
+// the warp's least (value, index) pair, ties to the smaller index
+__device__ __forceinline__ void warp_argmin(float& v, int& idx) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, v, off);
+    const int oi = __shfl_xor_sync(kFull, idx, off);
+    if (ov < v || (ov == v && oi < idx)) v = ov, idx = oi;
+  }
+}
+
+// sqrt((x^2 + y^2) + z^2) of a translation difference
+__device__ __forceinline__ float dist3(const float* a, const float* b) {
+  const float dx = a[3] - b[3], dy = a[7] - b[7], dz = a[11] - b[11];
+  return sqrtf(dx * dx + dy * dy + dz * dz);
+}
+
+// scal [fx, fy, cx, cy]; pre_gn (16); mark (4, M) rows x, y, z, w; marker_mask
+// (M) and det_mask (K) bool; det_xy (K, 2); tol_pf, jump_thr, predicted (16)
+// and trust (bool) on the device.  out: the published pose (16) then the
+// covariance (36); info: [n_iter, picked row, any feasible, teleported];
+// jump (bool).
+template <int M>
+__global__ void __launch_bounds__(32 * FrameShared<M>::kWarps)
+refine_frame_kernel(const float* __restrict__ scal, const float* __restrict__ pre_gn,
+                    const float* __restrict__ mark, const unsigned char* __restrict__ marker_mask,
+                    const float* __restrict__ det_xy, const unsigned char* __restrict__ det_mask,
+                    const float* __restrict__ tol_pf_p, const float* __restrict__ jump_thr,
+                    const float* __restrict__ predicted, const unsigned char* __restrict__ trust,
+                    int m_rt, int k, int max_iter, float tol, float gate, float step_radius,
+                    float jump_radius, int flags, float* __restrict__ out,
+                    int* __restrict__ info, unsigned char* __restrict__ jump_out) {
+  using S = FrameShared<M>;
+  __shared__ S sh;
+  const int m = M > 0 ? M : m_rt;
+  const int rows = (flags & kHypotheses) ? 2 * m + 1 : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
+  float p0[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) p0[i] = pre_gn[i];
+  float mx = 0.0f, my = 0.0f, mz = 0.0f;
+  bool m_ok = false;
+  if (lane < m) {
+    mx = mark[lane];
+    my = mark[m + lane];
+    mz = mark[2 * m + lane];
+    m_ok = marker_mask[lane] != 0;
+  }
+
+  if (warp == 0) {
+    for (int kk = lane; kk < k; kk += 32) {
+      sh.det[kk][0] = det_xy[2 * kk];
+      sh.det[kk][1] = det_xy[2 * kk + 1];
+      sh.det_ok[kk] = det_mask[kk] != 0;
+    }
+    __syncwarp();
+    // 1. pre_gn's pairs: lane q holds marker q's column
+    const float tol_pf = tol_pf_p[0];
+    float u = 0.0f, v = 0.0f;
+    float cmin = INFINITY;
+    int ck = 0;
+    bool nan = false;
+    if (lane < m) {
+      const float mw = mark[3 * m + lane];
+      const float pcx = p0[0] * mx + p0[1] * my + p0[2] * mz + p0[3] * mw;
+      const float pcy = p0[4] * mx + p0[5] * my + p0[6] * mz + p0[7] * mw;
+      const float pcz = p0[8] * mx + p0[9] * my + p0[10] * mz + p0[11] * mw;
+      const float z = fabsf(pcz) < 1e-12f ? 1e-12f : pcz;
+      u = fx * pcx / z + cx;
+      v = fy * pcy / z + cy;
+      for (int kk = 0; kk < k; ++kk) {
+        const float dx = sh.det[kk][0] - u, dy = sh.det[kk][1] - v;
+        const float d2 = (sh.det_ok[kk] && m_ok) ? dx * dx + dy * dy : kCap;
+        if (d2 != d2) nan = true;
+        else if (kk == 0 || d2 < cmin) cmin = d2, ck = kk;
+      }
+    }
+    int dfm = -1;
+    if (!__any_sync(kFull, nan)) {
+      for (int step = 0; step < m; ++step) {
+        float best = lane < m ? cmin : INFINITY;
+        int flat = lane < m ? ck * m + lane : INT_MAX;
+        warp_argmin(best, flat);
+        if (!(sqrtf(best) <= tol_pf)) break;
+        const int col = flat % m;
+        if (lane == col) {
+          dfm = max(dfm, flat / m);
+          cmin = kCap, ck = 0;
+        }
+      }
+    }
+    // 2. each bound marker's nearest other detection
+    int alt = dfm;
+    if ((flags & kHypotheses) && lane < m) {
+      const int bound = min(max(dfm, 0), k - 1);
+      float amin = INFINITY;
+      int ak = 0;
+      bool anan = false;
+      for (int kk = 0; kk < k; ++kk) {
+        const float dx = sh.det[kk][0] - u, dy = sh.det[kk][1] - v;
+        const float d2 = (sh.det_ok[kk] && kk != bound) ? dx * dx + dy * dy : kFar;
+        if (d2 != d2) anan = true;
+        else if (kk == 0 || d2 < amin) amin = d2, ak = kk;
+      }
+      if (!anan && amin <= tol_pf * tol_pf && dfm >= 0) alt = ak;
+    }
+    if (lane < m) sh.dfm[lane] = dfm, sh.alt[lane] = alt;
+  }
+  __syncthreads();
+
+  // 3. Gauss-Newton, one warp a row: base, swap marker h - 1, drop marker h - 1 - m
+  for (int h = warp; h < rows; h += warps) {
+    float du = 0.0f, dv = 0.0f, mk = 0.0f;
+    if (lane < m) {
+      int e = sh.dfm[lane];
+      if (h >= 1 && h <= m && lane == h - 1) e = sh.alt[lane];
+      if (h > m && lane == h - 1 - m) e = -1;
+      const int idx = min(max(e, 0), k - 1);
+      du = sh.det[idx][0];
+      dv = sh.det[idx][1];
+      mk = (e >= 0 && m_ok) ? 1.0f : 0.0f;
+    }
+    const int n_pairs = __popc(__ballot_sync(kFull, mk > 0.0f));
+    float p[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) p[i] = p0[i];
+    float err0, n_iter, done, max_resid;
+    const float sum = gn_warp<M>(p, lane, m, mx, my, mz, du, dv, mk, fx, fy, cx, cy,
+                                 sh.stage[warp], max_iter, tol, err0, n_iter, done, max_resid);
+    const bool diverged = __shfl_sync(kFull, sum, 27) > err0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (lane == i) sh.pose[h][i] = diverged ? p0[i] : p[i];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int e = min(lane + 32 * r, 35);
+      const float a = amat_entry(sum, e);
+      if (lane + 32 * r < 36) sh.amat[h][e] = a;
+    }
+    if (lane == 0) sh.resid[h] = max_resid, sh.iters[h] = n_iter, sh.pairs[h] = n_pairs;
+    __syncwarp();
+  }
+  __syncthreads();
+  if (warp != 0) return;
+
+  // 4. the pick: most pairs among the feasible rows, the first of equals
+  float key = -INFINITY;
+  int pick = INT_MAX;
+  for (int h = lane; h < rows; h += 32) {
+    const float n_pairs = (float)sh.pairs[h];
+    const bool feasible = sh.resid[h] <= gate && n_pairs > 0.0f &&
+                          dist3(sh.pose[h], p0) <= step_radius;
+    const float pref = n_pairs - 1e-3f * (float)h;
+    if (feasible && (pref > key || (pref == key && h < pick))) key = pref, pick = h;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ok = __shfl_xor_sync(kFull, key, off);
+    const int oh = __shfl_xor_sync(kFull, pick, off);
+    if (ok > key || (ok == key && oh < pick)) key = ok, pick = oh;
+  }
+  const bool any = pick != INT_MAX;
+  const int best = any ? pick : 0;
+  float pose[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pose[i] = any ? sh.pose[best][i] : p0[i];
+  float rot = 0.0f;
+  bool rot_nan = false;
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float g = fabsf(pose[4 * r + c] - p0[4 * r + c]);
+      rot_nan |= g != g;
+      rot = fmaxf(rot, g);
+    }
+  bool jump = !rot_nan && rot >= jump_thr[0];
+  bool teleport = false;
+  if (flags & kGuard) teleport = trust[0] != 0 && dist3(pose, predicted) > jump_radius;
+  jump = jump || teleport;
+
+  // 5. the picked row's covariance
+  float a[6][6], cov[6][6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j) a[i][j] = sh.amat[best][6 * i + j] + (i == j ? kDamping : 0.0f);
+  inv6_spd(a, cov);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (lane == i) out[i] = teleport ? predicted[i] : pose[i];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e = lane + 32 * r;
+    float c = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 36; ++i)
+      if (i == e) c = cov[i / 6][i % 6];
+    if (e < 36) out[16 + e] = c;
+  }
+  if (lane == 0) {
+    info[0] = (int)sh.iters[best];
+    info[1] = best;
+    info[2] = any;
+    info[3] = teleport;
+    jump_out[0] = jump;
+  }
+}
+
+template <int M>
+int launch_frame(const float* scal, const float* pre_gn, const float* mark,
+                 const unsigned char* marker_mask, const float* det_xy,
+                 const unsigned char* det_mask, const float* tol_pf, const float* jump_thr,
+                 const float* predicted, const unsigned char* trust, int m, int k, int max_iter,
+                 float tol, float gate, float step_radius, float jump_radius, int flags,
+                 float* out, int* info, unsigned char* jump, cudaStream_t st) {
+  const int rows = (flags & kHypotheses) ? 2 * m + 1 : 1;
+  const int warps = min(rows, FrameShared<M>::kWarps);
+  refine_frame_kernel<M><<<1, 32 * warps, 0, st>>>(scal, pre_gn, mark, marker_mask, det_xy,
+                                                   det_mask, tol_pf, jump_thr, predicted, trust,
+                                                   m, k, max_iter, tol, gate, step_radius,
+                                                   jump_radius, flags, out, info, jump);
+  return (int)cudaGetLastError();
 }
 
 template <int M>
@@ -378,4 +764,27 @@ extern "C" int pfmpe_gn_refine(const float* scal, const float* poses, const floa
                                            launch<5>, launch<6>, launch<7>, launch<8>};
   return kLaunch[m <= kFixedM ? m : 0](scal, poses, mark, du, dv, mask, nb, m, max_iter, tol,
                                        out_pose, stats, amat, (cudaStream_t)stream);
+}
+
+
+extern "C" int pfmpe_refine_frame(const float* scal, const float* pre_gn, const float* mark,
+                                  const unsigned char* marker_mask, const float* det_xy,
+                                  const unsigned char* det_mask, const float* tol_pf,
+                                  const float* jump_thr, const float* predicted,
+                                  const unsigned char* trust, int m, int k, int max_iter,
+                                  float tol, float gate, float step_radius, float jump_radius,
+                                  int flags, float* out, int* info, unsigned char* jump,
+                                  void* stream) {
+  if (m < 1 || m > kMaxM || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  using Launch = int (*)(const float*, const float*, const float*, const unsigned char*,
+                         const float*, const unsigned char*, const float*, const float*,
+                         const float*, const unsigned char*, int, int, int, float, float, float,
+                         float, int, float*, int*, unsigned char*, cudaStream_t);
+  constexpr Launch kLaunch[kFixedM + 1] = {
+      launch_frame<0>, launch_frame<1>, launch_frame<2>, launch_frame<3>, launch_frame<4>,
+      launch_frame<5>, launch_frame<6>, launch_frame<7>, launch_frame<8>};
+  return kLaunch[m <= kFixedM ? m : 0](scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf,
+                                       jump_thr, predicted, trust, m, k, max_iter, tol, gate,
+                                       step_radius, jump_radius, flags, out, info, jump,
+                                       (cudaStream_t)stream);
 }

@@ -1,20 +1,30 @@
-"""Batched Gauss-Newton kernel D (csrc/gn_refine.cu) and its plain version.
+"""Batched Gauss-Newton kernel D (csrc/gn_refine.cu), the fused refine
+that runs it inside the track branch's whole refine layer, and their plain
+versions.
 
-Ports `pf/pallas_refine.py::gauss_newton_refine_pallas`: every hypothesis
-runs the full iteration budget with a convergence mask, the Jacobi-scaled
-block-Schur solve of `_solve6_rows`, the exp map of `_exp_se3_rows`, then
-the final normal matrix, largest residual and divergence revert.  Sums over
-the M pairs run in index order on both sides.  The covariance
-(`inv6_spd`) is computed outside the kernel, as in the reference.
+Kernel D ports `pf/pallas_refine.py::gauss_newton_refine_pallas`: every
+hypothesis runs the full iteration budget with a convergence mask, the
+Jacobi-scaled block-Schur solve of `_solve6_rows`, the exp map of
+`_exp_se3_rows`, then the final normal matrix, largest residual and
+divergence revert.  Sums over the M pairs run in index order on both sides.
+The covariance (`inv6_spd`) is computed outside the kernel, as in the
+reference.
+
+`refine_frame` is one launch of the refine layer (`tracker/step.py::
+refine_hypotheses` op by op): the picked particle's greedy pairs, its 2M + 1
+binding hypotheses, D's iterations on each, the feasibility pick, the jump
+test and teleport guard, and the picked hypothesis's covariance.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..utils import cuda_lib
 from .refine import RefineResult, inv6_spd
-from .weight_kernel import MAX_MARKERS
+from .weight_kernel import MAX_DETECTIONS, MAX_MARKERS
 
 DAMPING = 1e-8
 EPS_THETA = 1e-8
@@ -231,3 +241,180 @@ def gauss_newton_refine_batched(camera, poses0: torch.Tensor, markers_h: torch.T
         converged=stats[:, 4] > 0,
         max_residual=stats[:, 3],
     )
+
+
+# weight_particles' distance of a masked cell, and the alternative search's
+CAP = torch.finfo(torch.float32).max / 4
+FAR = 1e12
+
+
+class FrameRefine(NamedTuple):
+    """`refine_frame`'s result: the published pose (4, 4), its covariance
+    (6, 6), the picked hypothesis's iterations (int32) and the jump flag
+    (bool); `info` (4,) int32 holds [iterations, picked hypothesis, any
+    feasible, teleported]."""
+
+    pose: torch.Tensor
+    covariance: torch.Tensor
+    num_iterations: torch.Tensor
+    jump: torch.Tensor
+    info: torch.Tensor
+
+
+def frame_hypotheses(scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf,
+                     hypotheses: bool = True) -> torch.Tensor:
+    """Steps 1-2 of `refine_frame_plain`: pre_gn's greedy pairs (each
+    column's least distance and first detection, then M steps of the least
+    column, the first in flat index k * M + m) and the hypotheses built from
+    them -> (2M + 1 or 1, M) int64 detection per marker (-1 unbound)."""
+    dev = pre_gn.device
+    p = pre_gn.reshape(16)
+    m, k = mark.shape[1], det_xy.shape[0]
+    fx, fy, cx, cy = (scal[i] for i in range(4))
+    pcx = p[0] * mark[0] + p[1] * mark[1] + p[2] * mark[2] + p[3] * mark[3]
+    pcy = p[4] * mark[0] + p[5] * mark[1] + p[6] * mark[2] + p[7] * mark[3]
+    pcz = p[8] * mark[0] + p[9] * mark[1] + p[10] * mark[2] + p[11] * mark[3]
+    z = torch.where(torch.abs(pcz) < 1e-12, torch.full_like(pcz, 1e-12), pcz)
+    u = fx * pcx / z + cx
+    v = fy * pcy / z + cy
+    dx = det_xy[:, 0, None] - u[None, :]
+    dy = det_xy[:, 1, None] - v[None, :]
+    d2 = dx * dx + dy * dy  # (K, M)
+    cap = torch.full((), CAP, dtype=torch.float32, device=dev)
+    cells = torch.where(det_mask[:, None] & marker_mask[None, :], d2, cap)
+    cmin = torch.min(cells, dim=0).values
+    ck = torch.argmax((cells == cmin[None]).to(torch.int32), dim=0)
+    done = torch.any(torch.isnan(cells))  # torch.min's NaN fails the first step
+    iota = torch.arange(m, device=dev)
+    dfm = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    for _ in range(m):
+        best = torch.min(cmin)
+        flat = torch.min(torch.where(cmin == best, ck * m + iota, m * k))
+        ok = (torch.sqrt(best) <= tol_pf) & ~done
+        done = done | ~ok
+        hit = (iota == flat % m) & ok
+        dfm = torch.where(hit, torch.maximum(dfm, flat // m), dfm)
+        cmin = torch.where(hit, cap, cmin)
+        ck = torch.where(hit, 0, ck)
+    if not hypotheses:
+        return dfm[None]
+    bound = torch.clamp(dfm, 0, k - 1)
+    slots = torch.arange(k, device=dev)
+    far = torch.full((), FAR, dtype=torch.float32, device=dev)
+    d2a = torch.where(det_mask[:, None] & (slots[:, None] != bound[None, :]), d2, far)
+    amin = torch.min(d2a, dim=0).values
+    alt = torch.argmax((d2a == amin[None]).to(torch.int32), dim=0)
+    alt = torch.where((amin <= tol_pf * tol_pf) & (dfm >= 0), alt, dfm)
+    eye = torch.eye(m, dtype=torch.bool, device=dev)
+    swap = torch.where(eye, alt[None, :], dfm[None, :])
+    drop = torch.where(eye, -1, dfm[None, :])
+    return torch.cat([dfm[None], swap, drop])
+
+
+def _dist3(a, b):
+    d = a[..., :3, 3] - b[:3, 3]
+    return torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2])
+
+
+def refine_frame_plain(scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf, jump_threshold,
+                       predicted, pred_trustworthy, max_iterations: int = 25,
+                       convergence_tol: float = 1e-4, residual_gate: float = 1.5,
+                       step_radius: float = 0.08, jump_radius: float = 0.0,
+                       hypotheses: bool = True) -> FrameRefine:
+    """Plain twin of `refine_frame`; same inputs, same outputs, the same
+    expressions in the kernel's order but the covariance: `inv6_spd` of every
+    hypothesis, then the pick, as the layer op by op computes it.  On the card
+    that is the kernel's covariance to the bit where there is more than one
+    hypothesis (a batch of one takes another cuBLAS path)."""
+    dev = pre_gn.device
+    pre = pre_gn.reshape(4, 4)
+    dfm_h = frame_hypotheses(scal, pre, mark, marker_mask, det_xy, det_mask, tol_pf, hypotheses)
+    n_h = dfm_h.shape[0]
+    masks = (dfm_h >= 0) & marker_mask[None, :]
+    idx = torch.clamp(dfm_h, 0, det_xy.shape[0] - 1)
+    poses, stats, amat = gn_refine_plain(
+        scal, pre.reshape(1, 16).expand(n_h, 16), mark[:3], det_xy[:, 0][idx],
+        det_xy[:, 1][idx], masks.float(), max_iterations, convergence_tol)
+    poses = poses.reshape(n_h, 4, 4)
+    n_pairs = torch.sum(masks, dim=-1).float()
+    feasible = (stats[:, 3] <= residual_gate) & (n_pairs > 0) & (_dist3(poses, pre) <= step_radius)
+    pref = n_pairs - 1e-3 * torch.arange(n_h, dtype=torch.float32, device=dev)
+    pref = torch.where(feasible, pref, torch.full((), float("-inf"), device=dev))
+    any_feasible = torch.any(feasible)
+    best = torch.where(any_feasible, torch.argmax(pref), torch.zeros((), dtype=torch.int64,
+                                                                      device=dev))
+    pick = lambda x: x.index_select(0, best.reshape(1))[0]
+    pose = torch.where(any_feasible, pick(poses), pre)
+    jump = torch.max(torch.abs(pose[:3, :3] - pre[:3, :3])) >= jump_threshold
+    teleport = torch.zeros((), dtype=torch.bool, device=dev)
+    if jump_radius > 0.0:
+        teleport = pred_trustworthy & (_dist3(pose, predicted) > jump_radius)
+        pose = torch.where(teleport, predicted, pose)
+        jump = jump | teleport
+    # every hypothesis's covariance, as the layer op by op computes them (the
+    # kernel computes the picked one's alone, its products summed as torch's
+    # batched matmul on the card sums them)
+    eye = torch.eye(6, dtype=torch.float32, device=dev) * DAMPING
+    cov = pick(inv6_spd(amat.reshape(n_h, 6, 6) + eye))
+    n_iter = pick(stats)[2].to(torch.int32)
+    info = torch.stack([n_iter, best.to(torch.int32), any_feasible.to(torch.int32),
+                        teleport.to(torch.int32)])
+    return FrameRefine(pose, cov, n_iter, jump, info)
+
+
+def refine_frame(scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf, jump_threshold,
+                 predicted, pred_trustworthy, max_iterations: int = 25,
+                 convergence_tol: float = 1e-4, residual_gate: float = 1.5,
+                 step_radius: float = 0.08, jump_radius: float = 0.0,
+                 hypotheses: bool = True) -> FrameRefine:
+    """The track branch's refine layer in one launch of the fused kernel.
+
+    scal (4,) [fx, fy, cx, cy]; pre_gn (4, 4) the picked particle's pose;
+    mark (4, M) the homogeneous markers as rows x, y, z, w; marker_mask (M,)
+    bool; det_xy (K, 2), det_mask (K,) bool; tol_pf, jump_threshold 0-d
+    float32; predicted (4, 4) and pred_trustworthy (0-d bool) for the
+    teleport guard, which runs where jump_radius > 0; 2M + 1 hypotheses, or
+    the base binding alone without `hypotheses`.  CPU tensors take the plain
+    twin, CUDA tensors the kernel (tensors on both raise).  `.calls` counts
+    every call, `.launches` the kernel's."""
+    refine_frame.calls += 1
+    floats = (scal, pre_gn, mark, det_xy, tol_pf, jump_threshold, predicted)
+    if any(t.dtype != torch.float32 for t in floats):
+        raise ValueError("refine_frame: poses, markers, detections and tolerances must be float32")
+    m, k = mark.shape[1], det_xy.shape[0]
+    if (scal.shape != (4,) or pre_gn.shape != (4, 4) or mark.shape != (4, m)
+            or marker_mask.shape != (m,) or det_xy.shape != (k, 2) or det_mask.shape != (k,)
+            or predicted.shape != (4, 4)):
+        raise ValueError("refine_frame: inconsistent shapes")
+    args = (scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf, jump_threshold, predicted,
+            pred_trustworthy, max_iterations, convergence_tol, residual_gate, step_radius,
+            jump_radius, hypotheses)
+    tensors = (scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf, jump_threshold,
+               predicted, pred_trustworthy)
+    if all(t.device.type == "cpu" for t in tensors):
+        return refine_frame_plain(*args)
+    cuda_lib.require_cuda("refine_frame", *tensors)
+    if not (1 <= m <= MAX_MARKERS and 1 <= k <= MAX_DETECTIONS):
+        raise ValueError(f"refine_frame: the kernel takes 1 <= M <= {MAX_MARKERS} markers and "
+                         f"1 <= K <= {MAX_DETECTIONS} detections (got M = {m}, K = {k})")
+    if any(t.dtype != torch.bool for t in (marker_mask, det_mask, pred_trustworthy)):
+        raise ValueError("refine_frame: masks and the trust flag must be bool")
+    lib = cuda_lib.library()
+    dev = pre_gn.device
+    out = torch.empty(52, dtype=torch.float32, device=dev)
+    info = torch.empty(4, dtype=torch.int32, device=dev)
+    jump = torch.empty((), dtype=torch.bool, device=dev)
+    flags = (1 if hypotheses else 0) | (2 if jump_radius > 0.0 else 0)
+    code = lib.pfmpe_refine_frame(
+        scal.data_ptr(), pre_gn.data_ptr(), mark.data_ptr(), marker_mask.data_ptr(),
+        det_xy.data_ptr(), det_mask.data_ptr(), tol_pf.data_ptr(), jump_threshold.data_ptr(),
+        predicted.data_ptr(), pred_trustworthy.data_ptr(), m, k, max_iterations,
+        float(convergence_tol), float(residual_gate), float(step_radius), float(jump_radius),
+        flags, out.data_ptr(), info.data_ptr(), jump.data_ptr(), cuda_lib.stream_ptr(pre_gn))
+    refine_frame.launches += 1
+    cuda_lib.check(code, "pfmpe_refine_frame")
+    return FrameRefine(out[:16].view(4, 4), out[16:].view(6, 6), info[0], jump, info)
+
+
+refine_frame.launches = 0
+refine_frame.calls = 0

@@ -43,7 +43,7 @@ from ..ops.exposure import ExposureState, exposure_control
 from ..ops.faults import inject_faults
 from ..pf.propagate import NoiseBounds, propagation_noise_factors
 from ..pf.refine import gauss_newton_refine
-from ..pf.refine_kernel import gauss_newton_refine_batched
+from ..pf.refine_kernel import gauss_newton_refine_batched, refine_frame
 from ..pf.resample_kernel import resample_bank
 from ..pf.soa import (
     propagate_soa,
@@ -158,6 +158,10 @@ class Tracker:
         m = self.markers_h.shape[0]
         down = list(config.marker_downgrade) + [False] * (m - len(config.marker_downgrade))
         self.downgrade = torch.tensor(down[:m], dtype=torch.bool, device=self.device)
+        # the fused refine's camera and markers, made once
+        c = self.camera
+        self._gn_scal = torch.stack([c.fx, c.fy, c.cx, c.cy]).float()
+        self._gn_mark = self.markers_h.T.contiguous()
         self._eye4 = torch.eye(4, device=self.device)
         self.dyn = DynamicParams.from_config(config, self.device)
         self._dyn_host = {n: float(_F32(getattr(config, n))) for n in _HOST_DYN}
@@ -630,9 +634,9 @@ class Tracker:
         hypotheses of the most-resampled particle; with a
         `jump_translation_radius`, a GN pose farther than it from the
         trustworthy prediction publishes the prediction and sets the jump
-        flag."""
+        flag.  With `use_pallas_gn` the refine is one launch of the fused
+        kernel (`refine_frame`), else `refine_hypotheses` op by op."""
         c = self.config
-        dev = self.device
         with trace.span("resample"):
             if "resample" in c.debug_skip:
                 resampled16, most = bank16, self.bank.argmax(weights_norm)
@@ -656,77 +660,101 @@ class Tracker:
 
         with trace.span("refine"):
             pre_gn = self.bank.pick_lane(bank16, most).reshape(4, 4)
-            tol_pf = dyn.back_projection_pixel_tolerance_pf
-            _, pairs_1, _ = weight_particles(self.camera, pre_gn[None], self.markers_h,
-                                             self.marker_mask, det.xy, det.mask, tol_pf,
-                                             dyn.back_projection_pixel_tolerance, self.downgrade)
-            base_pairs = pairs_1[0]
-            m_cap = self.markers_h.shape[0]
-            marker_ids = torch.arange(m_cap, device=dev)
-            minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
-            dfm_base = torch.max(torch.where(base_pairs[:, 0][None, :] == marker_ids[:, None],
-                                             base_pairs[:, 1][None, :], minus1), dim=1).values
-            if c.gn_hypotheses <= 1:
-                dfm_h = dfm_base[None]
-            else:
-                uv0 = project(self.camera, pre_gn, self.markers_h)
-                dd = det.xy[None, :, :] - uv0[:, None, :]
-                d2m = torch.sum(dd * dd, dim=-1)
-                big = torch.full((), 1e12, device=dev)
-                d2m = torch.where(det.mask[None, :], d2m, big)
-                bound = torch.clamp(dfm_base, 0, det.xy.shape[0] - 1)
-                slots = torch.arange(det.xy.shape[0], device=dev)
-                d2_alt = torch.where(slots[None, :] == bound[:, None], big, d2m)
-                alt_min = torch.min(d2_alt, dim=1).values
-                alt = torch.argmax((d2_alt == alt_min[:, None]).to(torch.int32),
-                                   dim=1).to(torch.int32)
-                alt_ok = (alt_min <= tol_pf * tol_pf) & (dfm_base >= 0)
-                alt = torch.where(alt_ok, alt, dfm_base)
-                eye_m = torch.eye(m_cap, dtype=torch.bool, device=dev)
-                swap_h = torch.where(eye_m, alt[None, :], dfm_base[None, :])
-                drop_h = torch.where(eye_m, minus1, dfm_base[None, :])
-                dfm_h = torch.cat([dfm_base[None], swap_h, drop_h])
-
-            corr_masks = (dfm_h >= 0) & self.marker_mask[None, :]
-            n_h = corr_masks.shape[0]
-            poses0 = pre_gn[None].expand(n_h, 4, 4)
             if c.use_pallas_gn:
-                res = gauss_newton_refine_batched(self.camera, poses0, self.markers_h, det.xy,
-                                                  dfm_h, corr_masks, c.gn_max_iterations,
-                                                  c.gn_convergence_tol)
+                final_pose, cov, n_iter, jump, _ = refine_frame(
+                    self._gn_scal, pre_gn, self._gn_mark, self.marker_mask, det.xy, det.mask,
+                    dyn.back_projection_pixel_tolerance_pf, dyn.jump_threshold, predicted,
+                    pred_trustworthy, c.gn_max_iterations, c.gn_convergence_tol,
+                    c.gn_residual_gate, c.gn_step_radius, c.jump_translation_radius,
+                    c.gn_hypotheses > 1)
             else:
-                corrs = torch.stack([marker_ids[None, :].expand(n_h, m_cap).to(dfm_h.dtype), dfm_h],
-                                    dim=-1)
-                res = gauss_newton_refine(self.camera, poses0, self.markers_h, det.xy, corrs,
-                                          corr_masks, c.gn_max_iterations, c.gn_convergence_tol)
-            n_pairs = torch.sum(corr_masks, dim=-1).float()
-            local = (torch.linalg.norm(res.pose[:, :3, 3] - pre_gn[:3, 3][None], dim=-1)
-                     <= c.gn_step_radius)
-            feasible = (res.max_residual <= c.gn_residual_gate) & (n_pairs > 0) & local
-            pref = n_pairs - 1e-3 * torch.arange(n_h, dtype=torch.float32, device=dev)
-            pref = torch.where(feasible, pref, torch.full((), float("-inf"), device=dev))
-            any_feasible = torch.any(feasible)
-            best_h = torch.where(any_feasible, torch.argmax(pref),
-                                 torch.zeros((), dtype=torch.int64, device=dev))
-            pick = lambda x: x.index_select(0, best_h.reshape(1))[0]
-            pose = torch.where(any_feasible, pick(res.pose), pre_gn)
-            jump = torch.max(torch.abs(pose[:3, :3] - pre_gn[:3, :3])) >= dyn.jump_threshold
-            final_pose = pose
-            if c.jump_translation_radius > 0.0:
-                teleport = pred_trustworthy & (torch.linalg.norm(pose[:3, 3] - predicted[:3, 3])
-                                               > c.jump_translation_radius)
-                final_pose = torch.where(teleport, predicted, pose)
-                jump = jump | teleport
+                final_pose, cov, n_iter, jump = refine_hypotheses(
+                    self.camera, pre_gn, self.markers_h, self.marker_mask, self.downgrade, det,
+                    dyn, predicted, pred_trustworthy, c)
             state = state.replace(
                 predicted_pose=final_pose,
-                covariance=pick(res.covariance),
+                covariance=cov,
                 pose_updated=self._t(True, torch.bool),
-                num_gn_iterations=pick(res.num_iterations),
+                num_gn_iterations=n_iter,
                 resampled=resampled16,
                 weights=weights_norm,
                 bank=bank16,
             )
             return self._update_pose_times(state, t, final_pose), jump
+
+
+def refine_hypotheses(camera: Camera, pre_gn, markers_h, marker_mask, downgrade, det: Detections,
+                      dyn: DynamicParams, predicted, pred_trustworthy, config: TrackerConfig,
+                      batched: bool = False):
+    """The refine layer op by op (the fused `refine_frame`'s counterpart,
+    which the tracker takes with `use_pallas_gn`): the picked particle's
+    greedy pairs (`weight_particles`), its 2M + 1 binding hypotheses (the
+    base, each marker swapped to its nearest other detection within tol_pf,
+    each marker dropped), Gauss-Newton on each (plain `gauss_newton_refine`,
+    or kernel D's `gauss_newton_refine_batched` with `batched`), the
+    feasibility pick, the rotation jump test and the teleport guard ->
+    (pose, covariance, num_gn_iterations, jump)."""
+    c = config
+    dev = pre_gn.device
+    tol_pf = dyn.back_projection_pixel_tolerance_pf
+    _, pairs_1, _ = weight_particles(camera, pre_gn[None], markers_h, marker_mask, det.xy,
+                                     det.mask, tol_pf, dyn.back_projection_pixel_tolerance,
+                                     downgrade)
+    base_pairs = pairs_1[0]
+    m_cap = markers_h.shape[0]
+    marker_ids = torch.arange(m_cap, device=dev)
+    minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
+    dfm_base = torch.max(torch.where(base_pairs[:, 0][None, :] == marker_ids[:, None],
+                                     base_pairs[:, 1][None, :], minus1), dim=1).values
+    if c.gn_hypotheses <= 1:
+        dfm_h = dfm_base[None]
+    else:
+        uv0 = project(camera, pre_gn, markers_h)
+        dd = det.xy[None, :, :] - uv0[:, None, :]
+        d2m = torch.sum(dd * dd, dim=-1)
+        big = torch.full((), 1e12, device=dev)
+        d2m = torch.where(det.mask[None, :], d2m, big)
+        bound = torch.clamp(dfm_base, 0, det.xy.shape[0] - 1)
+        slots = torch.arange(det.xy.shape[0], device=dev)
+        d2_alt = torch.where(slots[None, :] == bound[:, None], big, d2m)
+        alt_min = torch.min(d2_alt, dim=1).values
+        alt = torch.argmax((d2_alt == alt_min[:, None]).to(torch.int32), dim=1).to(torch.int32)
+        alt_ok = (alt_min <= tol_pf * tol_pf) & (dfm_base >= 0)
+        alt = torch.where(alt_ok, alt, dfm_base)
+        eye_m = torch.eye(m_cap, dtype=torch.bool, device=dev)
+        swap_h = torch.where(eye_m, alt[None, :], dfm_base[None, :])
+        drop_h = torch.where(eye_m, minus1, dfm_base[None, :])
+        dfm_h = torch.cat([dfm_base[None], swap_h, drop_h])
+
+    corr_masks = (dfm_h >= 0) & marker_mask[None, :]
+    n_h = corr_masks.shape[0]
+    poses0 = pre_gn[None].expand(n_h, 4, 4)
+    if batched:
+        res = gauss_newton_refine_batched(camera, poses0, markers_h, det.xy, dfm_h, corr_masks,
+                                          c.gn_max_iterations, c.gn_convergence_tol)
+    else:
+        corrs = torch.stack([marker_ids[None, :].expand(n_h, m_cap).to(dfm_h.dtype), dfm_h],
+                            dim=-1)
+        res = gauss_newton_refine(camera, poses0, markers_h, det.xy, corrs, corr_masks,
+                                  c.gn_max_iterations, c.gn_convergence_tol)
+    n_pairs = torch.sum(corr_masks, dim=-1).float()
+    local = (torch.linalg.norm(res.pose[:, :3, 3] - pre_gn[:3, 3][None], dim=-1)
+             <= c.gn_step_radius)
+    feasible = (res.max_residual <= c.gn_residual_gate) & (n_pairs > 0) & local
+    pref = n_pairs - 1e-3 * torch.arange(n_h, dtype=torch.float32, device=dev)
+    pref = torch.where(feasible, pref, torch.full((), float("-inf"), device=dev))
+    any_feasible = torch.any(feasible)
+    best_h = torch.where(any_feasible, torch.argmax(pref),
+                         torch.zeros((), dtype=torch.int64, device=dev))
+    pick = lambda x: x.index_select(0, best_h.reshape(1))[0]
+    pose = torch.where(any_feasible, pick(res.pose), pre_gn)
+    jump = torch.max(torch.abs(pose[:3, :3] - pre_gn[:3, :3])) >= dyn.jump_threshold
+    if c.jump_translation_radius > 0.0:
+        teleport = pred_trustworthy & (torch.linalg.norm(pose[:3, 3] - predicted[:3, 3])
+                                       > c.jump_translation_radius)
+        pose = torch.where(teleport, predicted, pose)
+        jump = jump | teleport
+    return pose, pick(res.covariance), pick(res.num_iterations), jump
 
 
 def _sort_resample(key, weights, bank16):

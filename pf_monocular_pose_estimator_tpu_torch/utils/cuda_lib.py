@@ -44,6 +44,8 @@ _SIGNATURES = {
     "pfmpe_monotone_gather": (_P, _P, _I, _I, _I, _P, _P, _P),
     "pfmpe_ring_gather": (_P, _P, _P, _I, _I, _P, _I, _P, _P),
     "pfmpe_gn_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
+    "pfmpe_refine_frame": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                           _I, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -3,12 +3,16 @@
 as the track branch builds them), and the single-pose refiner of the init
 branch against the reference's `gauss_newton_refine`.  Sums over the
 pairs may run in another order on the two sides, so poses agree to 1e-5
-and residuals to 1e-3 px."""
+and residuals to 1e-3 px.  The fused refine's plain twin
+(`refine_frame_plain`) against the layer op by op, to the bit."""
+
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import refine_cases
 import torch
 
 from pf_monocular_pose_estimator_tpu.geometry.camera import Camera as RefCamera
@@ -19,7 +23,13 @@ from pf_monocular_pose_estimator_tpu.pf.refine import gauss_newton_refine as ref
 from pf_monocular_pose_estimator_tpu.pf.refine import inv6_spd as ref_inv6
 from pf_monocular_pose_estimator_tpu.pf.refine import solve6_spd as ref_solve6
 from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
+import pf_monocular_pose_estimator_tpu_torch.tracker.step as port_step
+from pf_monocular_pose_estimator_tpu_torch.ops.blob import Detections
 from pf_monocular_pose_estimator_tpu_torch.pf import refine, refine_kernel
+from pf_monocular_pose_estimator_tpu_torch.tracker import TargetState, make_tracker
+from pf_monocular_pose_estimator_tpu_torch.tracker.step import refine_hypotheses
+from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
 
 torch.set_num_threads(2)
 
@@ -121,3 +131,84 @@ def test_solve6_and_inv6_match_reference():
             atol=1e-5)
     np.testing.assert_allclose(refine.inv6_spd(torch.from_numpy(a)).numpy(),
                                np.asarray(ref_inv6(jnp.asarray(a))), rtol=1e-4, atol=1e-5)
+
+
+def _same(got, want):
+    """Equal to the bit; NaN where the other has NaN (a covariance of a
+    binding with too few pairs to fix the pose)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _check_fused_twin(p):
+    """`refine_frame_plain` against the layer op by op with kernel D's plain
+    twin (`refine_hypotheses(..., batched=True)`, the parent's default): the
+    published pose, its covariance, the iterations and the jump flag equal
+    to the bit.  The twin's translation norms are written out where the
+    chain calls `torch.linalg.norm`; they differ by an ulp at most, which
+    moves a pick or the guard only on the boundary of its radius."""
+    got = refine_kernel.refine_frame_plain(*refine_cases.fused_args(p))
+    want = refine_hypotheses(*refine_cases.chain_args(p), batched=True)
+    for g, w in zip(got[:4], want):
+        _same(g, w)
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 3, 5, 9])
+@pytest.mark.parametrize("case", refine_cases.CASES)
+def test_refine_frame_plain_matches_chain(case, m):
+    """Every case of `tests/refine_cases.py` at K = 16, 2M + 1 hypotheses."""
+    p = refine_cases.frame_case(case, m, 16)
+    got = _check_fused_twin(p)
+    best, any_feasible, teleported = (int(x) for x in got.info[1:])
+    if case in ("clean", "tie") and m >= 3:
+        assert any_feasible
+    if case == "infeasible":  # falls back to the picked particle
+        assert best == 0 and not any_feasible and torch.equal(got.pose, p["pre_gn"])
+    if m >= 3:  # one pair barely turns the pose
+        assert bool(got.jump) == (case == "guard_trusted" or (case == "jump" and any_feasible))
+    assert teleported == (case == "guard_trusted")
+
+
+@pytest.mark.parametrize("m,k,hypotheses", [(3, 1, 4), (5, 1, 1), (5, 16, 1), (8, 16, 4),
+                                            (16, 128, 4)])
+def test_refine_frame_plain_matches_chain_shapes(m, k, hypotheses):
+    """One detection slot, the base binding alone, and the widest marker and
+    slot counts a tracker on the card takes below the kernel's limits."""
+    for case in ("clean", "tie", "occluded"):
+        _check_fused_twin(refine_cases.frame_case(case, m, k, hypotheses=hypotheses))
+
+
+def test_refine_frame_plain_matches_chain_on_golden_frames(monkeypatch):
+    """The tracker on the golden sequence (2,000 particles, the CPU twins):
+    each tracked frame's refine inputs through both, equal to the bit, and
+    the fused wrapper called once a tracked frame without a launch."""
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "golden_sequence.npz"))
+    cam = Camera.create(float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
+                        np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
+    markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)
+    step = make_tracker(cam, torch.from_numpy(markers), torch.ones(5, dtype=torch.bool),
+                        TrackerConfig(n_particles=2000, min_blob_area=8.0, pf_max_retries=8,
+                                      roi_particle_subsample=128), device="cpu")
+    real, seen = port_step.refine_frame, []
+
+    def both(*args):
+        got = real(*args)
+        scal, pre_gn, mark, marker_mask, det_xy, det_mask, _, jump_thr, predicted, trust = args[:10]
+        det = Detections(xy=det_xy, xy_distorted=det_xy, mask=det_mask, area=det_xy[:, 0],
+                         occluded=det_mask, injected=det_mask)
+        want = refine_hypotheses(step.camera, pre_gn, step.markers_h, marker_mask, step.downgrade,
+                                 det, step.dyn, predicted, trust, step.config, batched=True)
+        for g, w in zip(got[:4], want):
+            _same(g, w)
+        seen.append(int(got.info[1]))
+        return got
+
+    monkeypatch.setattr(port_step, "refine_frame", both)
+    calls, launches = refine_kernel.refine_frame.calls, refine_kernel.refine_frame.launches
+    state = TargetState.create(2000, prng_key(0), device="cpu")
+    for i in range(4):
+        state, _ = step(state, torch.from_numpy(d["frames"][i]), float(d["times"][i]))
+    assert len(seen) == 3  # the init frame refines through its own branch
+    assert refine_kernel.refine_frame.calls - calls == 3
+    assert refine_kernel.refine_frame.launches == launches

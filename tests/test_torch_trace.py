@@ -47,11 +47,12 @@ SYNCS = [4, 5, 5]
 # rows (2); the ROI's full-frame box (1); the detection's blur taps, crop
 # ROI, crop offset and id sentinel (4); each PF pass's inflation and marker
 # count (2); the teleport guard's flag, the motion prior's rows and falloff,
-# the lane count (4); the accepted flags (2); the refine's weight cap and
-# update flag (2); the four counters (4); the brute-force flag and the
-# published pose's inverse row (2).  The full-frame detection has no crop
-# ROI or offset (2 fewer); the init frame runs its own branch.
-UPLOADS = [53, 24, 26]
+# the lane count (4); the accepted flags (2); the refine's update flag (1:
+# the fused refine uploads no weight cap); the four counters (4); the
+# brute-force flag and the published pose's inverse row (2).  The
+# full-frame detection has no crop ROI or offset (2 fewer); the init frame
+# runs its own branch.
+UPLOADS = [53, 23, 25]
 
 
 @pytest.fixture(autouse=True)

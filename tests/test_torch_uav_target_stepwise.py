@@ -40,6 +40,7 @@ from pf_monocular_pose_estimator_tpu.tracker import TargetState as RefState
 from pf_monocular_pose_estimator_tpu.tracker import make_tracker as ref_make_tracker
 from pf_monocular_pose_estimator_tpu.utils import TrackerConfig as RefConfig
 import pf_monocular_pose_estimator_tpu_torch.tracker.step as port_step
+from pf_monocular_pose_estimator_tpu_torch.pf.refine_kernel import frame_hypotheses
 from pf_monocular_pose_estimator_tpu_torch.io.experiment import load_experiment
 from pf_monocular_pose_estimator_tpu_torch.tracker import make_tracker
 from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig, convert
@@ -128,13 +129,18 @@ def _check_stepwise(ref: _Reference, n_frames: int, monkeypatch):
     port's gap and the reference's one-ulp moves."""
     ref.upto(n_frames)
     gn_args = []
-    real_gn = port_step.gauss_newton_refine_batched
+    real_refine = port_step.refine_frame
 
-    def spy(camera, poses0, markers_h, det_xy, dfm, masks, iters, tol):
-        gn_args[:] = [poses0, det_xy, dfm, masks, iters, tol]
-        return real_gn(camera, poses0, markers_h, det_xy, dfm, masks, iters, tol)
+    def spy(scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf, *rest):
+        # the Gauss-Newton inputs of the fused refine: its hypotheses from pre_gn
+        iters, tol, hypotheses = rest[3], rest[4], rest[-1]
+        dfm = frame_hypotheses(scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf,
+                               hypotheses)
+        poses0 = pre_gn[None].expand(dfm.shape[0], 4, 4)
+        gn_args[:] = [poses0, det_xy, dfm, (dfm >= 0) & marker_mask[None, :], iters, tol]
+        return real_refine(scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf, *rest)
 
-    monkeypatch.setattr(port_step, "gauss_newton_refine_batched", spy)
+    monkeypatch.setattr(port_step, "refine_frame", spy)
     step = make_tracker(ref.camera, ref.markers, torch.ones(ref.markers.shape[0], dtype=torch.bool),
                         TrackerConfig(**ref.config), device="cpu")
     undetermined = {}
