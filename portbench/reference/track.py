@@ -1,12 +1,15 @@
 """The benchmark's plain reference of one tracker frame, and its judge.
 
-`Reference.step(prev, image, t)` runs one frame of the tracker's main path
-(the init branch, or the particle-filter track branch with ESS-gated
-resampling and Gauss-Newton over 2M+1 hypotheses) in plain PyTorch, from
-a state `prev`: the frozen plain path of the port (`reference/*`, no
-kernel), with the host control flow of `tracker/step.py::Tracker` for the
-options a benchmark configuration may set (no fault injection, exposure
-control, ego-motion, IPE, mesh or debug switches).
+`Reference.step(prev, image, t)` runs one frame of the tracker in plain
+PyTorch, from a state `prev`: the init branch, then, as the configuration's
+`use_particle_filter` chooses, the particle-filter track branch (ESS-gated
+resampling and Gauss-Newton over 2M+1 hypotheses) or the IPE track branch
+(nearest-neighbour correspondences checked by P3P consensus, one-pose
+Gauss-Newton, the brute-force initialisation when the check fails).  It is
+the frozen plain path of the port (`reference/*`, no kernel), with the host
+control flow of `tracker/step.py::Tracker` for the options a benchmark
+configuration may set (no fault injection, exposure control, ego-motion,
+mesh or debug switches).
 
 With `given` (the judged side's state and result after the same frame),
 each stage runs on the judged side's input to that stage and its output
@@ -20,7 +23,9 @@ is measured against the judged side's:
     weights;
   * the refine (kernel D): the published pose and its covariance, from the
     judged detections and the particle the judged resampling copied most
-    (the reference's own pick when the frame did not resample);
+    (the reference's own pick when the frame did not resample); on an IPE
+    frame, from the judged detections and the reference's own consensus
+    or initialisation;
   * the frame's fail flag and update flag;
   * every field that the state hands on to the next frame: the key, the
     counters and the two times exactly, the current, previous and predicted
@@ -29,9 +34,10 @@ is measured against the judged side's:
     sets, which a frame leaves as they were.
 
 So one stage's rounding is not carried into the next, and every reading is
-that stage's own gap.  With `low=torch.bfloat16` (the control) every value
-a stage hands on is rounded to bfloat16 and the resampler scans its CDF in
-bfloat16.
+that stage's own gap.  An IPE frame hands on the bank, the resampled bank
+and the weights as it was given them.  With `low=torch.bfloat16` (the
+control) every value a stage hands on is rounded to bfloat16 and the
+resampler scans its CDF in bfloat16.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from .pf.refine_kernel import gauss_newton_refine_batched
 from .pf.soa import pick_lane, stratified_resample_soa, unpack
 from .pf.step_kernel import fused_propagate_weight, resample_gather
 from .pf.weight import weight_particles
+from .tracker.check import check_correspondences
 from .tracker.initialise import InitResult, argsort_stable, fill_bank_with_seeds, initialise
 from .tracker.short_p3p import short_p3p
 from .utils import prng
@@ -285,8 +292,10 @@ class Reference:
         s.fail_flag, s.pose_updated, s.num_gn_iterations = -10, False, 0
         if counters[0] < 1:
             s = self._init_branch(s, image, t_d, counters, given, rd, round_to)
-        else:
+        elif self.config.use_particle_filter:
             s = self._track_branch(s, image, t_d, counters, given, rd, round_to, low)
+        else:
+            s = self._ipe_branch(s, image, t_d, counters, given, rd, round_to)
         s.fail_flag = int(s.fail_flag)
         s.pose_updated = bool(s.pose_updated)
         if given is not None:
@@ -365,12 +374,7 @@ class Reference:
             bank = round_to(init_res.bank)
             if given is not None:
                 rd.put("bank", _gap(bank, given[0].bank))
-            m = self.markers_h.shape[0]
-            corr = torch.stack([torch.arange(m, dtype=torch.int32, device=self.device),
-                                init_res.det_for_marker], -1)
-            corr_mask = (init_res.det_for_marker >= 0) & self.marker_mask
-            res = gauss_newton_refine(self.camera, init_res.pose, self.markers_h, det.xy, corr,
-                                      corr_mask, c.gn_max_iterations, c.gn_convergence_tol)
+            res = self._refine_from(init_res.pose, init_res.det_for_marker, det)
             s.current_pose, s.predicted_pose = init_res.pose, round_to(res.pose)
             s.covariance, s.bank, s.resampled = round_to(res.covariance), bank, bank
             s.pose_updated, s.num_gn_iterations = True, res.num_iterations
@@ -531,6 +535,78 @@ class Reference:
             self._judge_pf(s.bank, None, given, rd)
         self._counters(s, it, unc, coast, deg)
         return s
+
+    # --------------------------------------------------------- IPE TRACK
+    # Frozen plain copy of pf_monocular_pose_estimator_tpu_torch/tracker/step.py::
+    # Tracker._ipe_branch at c9c60f0 (itself the reference `ipe_track_branch`), without
+    # fault injection: nearest-neighbour correspondences from the predicted pose,
+    # checked by P3P consensus, then one-pose Gauss-Newton; the brute-force
+    # initialisation when the check fails.  The bank, resampled bank and weights
+    # pass through unchanged.
+    def _ipe_branch(self, s, image, t, counters, given, rd, round_to):
+        c, dyn = self.config, self.dyn
+        it, unc, coast, deg = counters
+        key, _k_faults = prng.split(torch.as_tensor(s.key).tolist())
+        s.key = torch.tensor(key, dtype=torch.int64)
+        min_a, _ = self._adaptive_blob_areas(torch.linalg.norm(s.predicted_pose[:3, 3]))
+        if it >= 2:  # constant-velocity prediction once the track is mature
+            dt_past = s.time_current - s.time_previous
+            s.predicted_pose = s.current_pose @ predict_constant_velocity(
+                s.previous_pose, s.current_pose, dt_past, t - s.time_current)
+        pix = project(self.camera, s.predicted_pose, self.markers_h)
+        roi = round_to(determine_roi(pix, self.marker_mask, self.camera, c.roi_border_thickness))
+        det = self._detect(image, roi, min_a, None)
+        if self.host(det.count) < c.min_num_leds_detected:  # search the whole frame once
+            roi = self._t([0.0, 0.0, float(self.camera.width), float(self.camera.height)])
+            det = self._detect(image, roi, min_a, None)
+        det = s.det = self._judge_detections(det, roi, given, rd, round_to)
+        s.roi = roi
+        if self.host(det.count) < c.min_num_leds_detected:
+            s.fail_flag = int(FailFlag.TOO_FEW_MARKERS_DETECTED)
+            self._counters(s, it, unc, coast, deg)
+            return s
+
+        dd = pix[:, None, :] - det.xy[None, :, :]
+        d2 = torch.sum(dd * dd, dim=-1)  # (M, K)
+        d2 = torch.where(det.mask[None, :], d2, torch.full((), float("inf"), device=self.device))
+        nearest = torch.argmin(d2, dim=-1)
+        min_d = torch.sqrt(torch.min(d2, dim=-1).values)
+        dfm = torch.where((min_d <= dyn.nearest_neighbour_pixel_tolerance) & self.marker_mask,
+                          nearest.to(torch.int32),
+                          torch.full((), -1, dtype=torch.int32, device=self.device))
+        chk = check_correspondences(self.camera, det.xy, det.mask, self.markers_h,
+                                    self.marker_mask, dfm[None], c.min_num_leds_detected, c, dyn)
+        if self.host(chk.success[0]):
+            res = self._refine_from(chk.pose[0], dfm, det)
+            flag = FailFlag.PF_SUCCESS
+        else:
+            init_res = initialise(self.camera, det, self.markers_h, self.marker_mask, s.bank, c,
+                                  dyn, fill_seeds=fill_bank_with_seeds)
+            if not self.host(init_res.success):
+                s.fail_flag = int(self.host(init_res.flag))
+                self._counters(s, 0, unc, coast, deg)
+                return s
+            res = self._refine_from(init_res.pose, init_res.det_for_marker, det)
+            s.current_pose = init_res.pose
+            flag = FailFlag.INIT_SUCCESS
+        pose = round_to(res.pose)
+        s.predicted_pose, s.covariance = pose, round_to(res.covariance)
+        s.pose_updated, s.num_gn_iterations = True, res.num_iterations
+        s.fail_flag = int(flag)
+        self._counters(s, min(it + 1, 2), unc, coast, deg)
+        self._update_pose_times(s, t, pose)
+        return s
+
+    def _refine_from(self, pose0, det_for_marker, det):
+        """One-pose Gauss-Newton from `pose0` on the pairs (marker m,
+        detection det_for_marker[m])."""
+        c = self.config
+        m = self.markers_h.shape[0]
+        corr = torch.stack([torch.arange(m, dtype=torch.int32, device=self.device),
+                            det_for_marker], -1)
+        corr_mask = (det_for_marker >= 0) & self.marker_mask
+        return gauss_newton_refine(self.camera, pose0, self.markers_h, det.xy, corr, corr_mask,
+                                   c.gn_max_iterations, c.gn_convergence_tol)
 
     def _judge_pf(self, bank, weights, given, rd):
         """PF stage: the bank that entered resampling and its weights."""

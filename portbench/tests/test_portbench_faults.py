@@ -8,9 +8,9 @@ returns its state unchanged, a step that hands on one field of its state
 (the key, a time, the previous pose) as it was given, a start from a state
 that the seed does not give, the PF weights of half the particles left
 out (the others' normalised over the rest), and a published pose moved
-where the refine produces it.  A sound run of the same size comes out
-true.  The cells run on one card, so no exchange between cards can be
-left out.
+where the fused refine (`refine_frame`) produces it.  A sound run of the
+same size comes out true.  The cells run on one card, so no exchange
+between cards can be left out.
 """
 
 from __future__ import annotations
@@ -138,15 +138,15 @@ def test_half_the_particles_left_out_is_not_correct(monkeypatch):
 
 @pytest.mark.parametrize("shift_m", [5e-3])
 def test_pose_altered_where_produced_is_not_correct(monkeypatch, shift_m):
-    refine = step_mod.gauss_newton_refine_batched
+    refine = step_mod.refine_frame
 
     def moved(*a, **k):
         r = refine(*a, **k)
         pose = r.pose.clone()
-        pose[:, 0, 3] += shift_m
+        pose[0, 3] += shift_m
         return r._replace(pose=pose)
 
-    monkeypatch.setattr(step_mod, "gauss_newton_refine_batched", moved)
+    monkeypatch.setattr(step_mod, "refine_frame", moved)
     res = run_small()
     assert not res["correct"]
     assert res["checks"]["pose_mm"]["value"] > res["checks"]["pose_mm"]["limit"]

@@ -202,8 +202,8 @@ def test_detect_stats_roofline_arithmetic_and_none_cases(counters):
 
 def test_the_new_metric_is_declared_beside_the_accepted_ones():
     bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
-    m = bench["per_layer"][-1]
-    assert m["name"] == "detect_stats_roofline" and m["unit"] == "%"
+    m = next(x for x in bench["per_layer"] if x["name"] == "detect_stats_roofline")
+    assert m["unit"] == "%"
     assert m["layer"] == next(x["layer"] for x in bench["per_layer"]
                               if x["name"] == "detect.device_us_per_frame")
     assert m["workloads"] == [w["name"] for w in bench["workloads"]]
