@@ -75,6 +75,23 @@ _HOST_DYN = ("pf_exit_gate_factor", "pf_accept_gate_factor", "marginal_margin_fa
 _ROT_CAM = ((0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 0.0), (1.0, 0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 1.0))
 
 
+class IpeCounts:
+    """What the IPE track branch did, over the process, counted on values
+    the host already holds: `frames` entered the branch, `full_frame`
+    retried detection on the whole frame, `checked` reached the consensus
+    check, `fallback` failed it and ran the brute-force initialisation, and
+    `gn_iterations` Gauss-Newton iterations ran op by op from the
+    host (`gn_max_iterations` a refine)."""
+
+    __slots__ = ("frames", "full_frame", "checked", "fallback", "gn_iterations")
+
+    def __init__(self):
+        self.frames = self.full_frame = self.checked = self.fallback = self.gn_iterations = 0
+
+
+ipe_counts = IpeCounts()
+
+
 def _ego_motion(state: TargetState, t: torch.Tensor, obs_pose: torch.Tensor,
                 obs_time: torch.Tensor):
     """Observer-camera ego-motion (reference `tracker/step.py::_ego_motion`):
@@ -567,24 +584,28 @@ class Tracker:
         """The track branch without a particle filter (reference
         `ipe_track_branch`): nearest-neighbour correspondences from the
         predicted pose, checked by P3P consensus, then Gauss-Newton; the
-        brute-force initialisation when the check fails."""
+        brute-force initialisation when the check fails.  Counted in
+        `ipe_counts`."""
         c = self.config
         it, unc, coast, deg = counters
+        ipe_counts.frames += 1
         key, k_faults = prng.split(state.key.tolist())
         state = state.replace(key=torch.tensor(key, dtype=torch.int64))
         min_a, _ = self._adaptive_blob_areas(dyn, torch.linalg.norm(state.predicted_pose[:3, 3]))
 
-        # const-velocity prediction once the track is mature, else the last prediction
-        if it >= 2:
-            dt_past = state.time_current - state.time_previous
-            predicted = state.current_pose @ predict_constant_velocity(
-                state.previous_pose, state.current_pose, dt_past, t - state.time_current)
-            state = state.replace(predicted_pose=predicted)
-        pix = project(self.camera, state.predicted_pose, self.markers_h)
-        roi = determine_roi(pix, self.marker_mask, self.camera, c.roi_border_thickness)
+        with trace.span("tracker.roi"):
+            # const-velocity prediction once the track is mature, else the last prediction
+            if it >= 2:
+                dt_past = state.time_current - state.time_previous
+                predicted = state.current_pose @ predict_constant_velocity(
+                    state.previous_pose, state.current_pose, dt_past, t - state.time_current)
+                state = state.replace(predicted_pose=predicted)
+            pix = project(self.camera, state.predicted_pose, self.markers_h)
+            roi = determine_roi(pix, self.marker_mask, self.camera, c.roi_border_thickness)
         det = self._detect(image, roi, min_a, None, dyn)
         count = self.host(det.count)
         if count < c.min_num_leds_detected:  # search the whole frame once
+            ipe_counts.full_frame += 1
             roi = self._t([0.0, 0.0, float(self.camera.width), float(self.camera.height)])
             det = self._detect(image, roi, min_a, None, dyn)
             count = self.host(det.count)
@@ -596,28 +617,37 @@ class Tracker:
                 fail_flag=self._t(int(FailFlag.TOO_FEW_MARKERS_DETECTED), torch.int32))
             return state, det, self._t(0.0), False
 
-        dd = pix[:, None, :] - det.xy[None, :, :]
-        d2 = torch.sum(dd * dd, dim=-1)  # (M, K)
-        d2 = torch.where(det.mask[None, :], d2, torch.full((), float("inf"), device=self.device))
-        nearest = torch.argmin(d2, dim=-1)
-        min_d = torch.sqrt(torch.min(d2, dim=-1).values)
-        dfm = torch.where((min_d <= dyn.nearest_neighbour_pixel_tolerance) & self.marker_mask,
-                          nearest.to(torch.int32),
-                          torch.full((), -1, dtype=torch.int32, device=self.device))
-        chk = check_correspondences(self.camera, det.xy, det.mask, self.markers_h,
-                                    self.marker_mask, dfm[None], c.min_num_leds_detected, c, dyn)
-        if self.host(chk.success[0]):
-            res = self._refine_from(chk.pose[0], dfm, det)
+        ipe_counts.checked += 1
+        with trace.span("ipe.check"):
+            dd = pix[:, None, :] - det.xy[None, :, :]
+            d2 = torch.sum(dd * dd, dim=-1)  # (M, K)
+            d2 = torch.where(det.mask[None, :], d2,
+                             torch.full((), float("inf"), device=self.device))
+            nearest = torch.argmin(d2, dim=-1)
+            min_d = torch.sqrt(torch.min(d2, dim=-1).values)
+            dfm = torch.where((min_d <= dyn.nearest_neighbour_pixel_tolerance) & self.marker_mask,
+                              nearest.to(torch.int32),
+                              torch.full((), -1, dtype=torch.int32, device=self.device))
+            chk = check_correspondences(self.camera, det.xy, det.mask, self.markers_h,
+                                        self.marker_mask, dfm[None], c.min_num_leds_detected, c,
+                                        dyn)
+            checked = self.host(chk.success[0])
+        if checked:
+            with trace.span("refine"):
+                res = self._refine_from(chk.pose[0], dfm, det)
             flag = FailFlag.PF_SUCCESS
         else:
-            init_res = initialise(self.camera, det, self.markers_h, self.marker_mask, state.bank,
-                                  c, dyn, fill_seeds=self.bank.fill_seeds)
-            if not self.host(init_res.success):
-                state = state.replace(fail_flag=init_res.flag)
-                return self._counters(state, 0, unc, coast, deg), det, self._t(0.0), False
-            res = self._refine_from(init_res.pose, init_res.det_for_marker, det)
+            ipe_counts.fallback += 1
+            with trace.span("ipe.fallback"):
+                init_res = initialise(self.camera, det, self.markers_h, self.marker_mask,
+                                      state.bank, c, dyn, fill_seeds=self.bank.fill_seeds)
+                if not self.host(init_res.success):
+                    state = state.replace(fail_flag=init_res.flag)
+                    return self._counters(state, 0, unc, coast, deg), det, self._t(0.0), False
+                res = self._refine_from(init_res.pose, init_res.det_for_marker, det)
             state = state.replace(current_pose=init_res.pose)
             flag = FailFlag.INIT_SUCCESS
+        ipe_counts.gn_iterations += c.gn_max_iterations  # gauss_newton_refine's host loop
         state = state.replace(
             predicted_pose=res.pose,
             covariance=res.covariance,

@@ -1,10 +1,14 @@
 """Spans of the tracker's frame step: where a frame's host time goes.
 
 `span(name)` wraps one layer of `Tracker.__call__` (`tracker.frame`,
-`tracker.init`, `tracker.roi`, `detect`, `pf.loop`, `resample`, `refine`)
-or of `MultiTracker.__call__` (`multi.frame`).  With tracing off (the
-default) it returns one shared no-op context and records nothing.  With
-tracing on (`enable()`) each span records
+`tracker.init`, `tracker.roi`, `detect`, `pf.loop`, `resample`, `refine`;
+the IPE track branch's `tracker.roi`, `detect`, `ipe.check`, `refine`
+and `ipe.fallback`) or of `MultiTracker.__call__` (`multi.frame`).
+`ipe.check` holds the nearest-neighbour pairing and the P3P consensus
+check, `ipe.fallback` the brute-force initialisation after a failed check
+and its refine.  With tracing off (the default) it returns one shared
+no-op context and records nothing.  With tracing on (`enable()`) each
+span records
 
     Span(id, parent, name, frame, target, start_ns, end_ns, self_ns, syncs, uploads)
 

@@ -6,14 +6,22 @@ records nothing and calls no profiler.  On an init frame and two tracked
 frames of the golden sequence (2,000 particles, the CPU twins) the spans
 come in the frame's order, tracing changes no tensor, and the counters
 read their stated constants: `host.count` as before the uploads were
-counted, `host.uploads` one a host value put on the device.
+counted, `host.uploads` one a host value put on the device.  On an IPE
+tracker (`use_particle_filter=False`, 64 particles) an init frame, four
+tracked frames and one frame whose predicted pose is moved 5 cm, so that
+it detects again on the whole frame, the consensus check fails and the
+brute-force fallback runs, record the
+IPE spans in the frame's order with no nesting fault, and tracing changes
+no tensor, count or upload there either.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,9 +30,16 @@ import torch
 from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
 from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
 from pf_monocular_pose_estimator_tpu_torch.tracker import TargetState, make_tracker
-from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig, cuda_lib, trace
+from pf_monocular_pose_estimator_tpu_torch.tracker import step as step_mod
+from pf_monocular_pose_estimator_tpu_torch.utils import FailFlag, TrackerConfig, cuda_lib, trace
 from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
 from pf_monocular_pose_estimator_tpu_torch.utils.sync import HostReads, upload
+
+BENCH = Path(__file__).resolve().parents[1] / "portbench"
+if str(BENCH) not in sys.path:
+    sys.path.insert(0, str(BENCH))
+
+import spans as bench_spans  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -53,6 +68,15 @@ SYNCS = [4, 5, 5]
 # full-frame detection has no crop ROI or offset (2 fewer); the init frame
 # runs its own branch.
 UPLOADS = [53, 23, 25]
+IPE = dict(use_particle_filter=False, n_particles=64, min_blob_area=8.0)
+IPE_FRAMES = 6
+# the frame whose predicted pose is moved 5 cm along x: its ROI holds too few
+# LEDs, so it detects again on the whole frame, and its pairs fail the check
+IPE_FALLBACK = 5
+IPE_TRACKED = ["tracker.frame", "tracker.roi", "detect", "ipe.check", "refine"]
+IPE_SPAN_ORDER = ([["tracker.frame", "tracker.init", "detect"]] + [IPE_TRACKED] * 4
+                  + [["tracker.frame", "tracker.roi", "detect", "detect", "ipe.check",
+                      "ipe.fallback"]])
 
 
 @pytest.fixture(autouse=True)
@@ -64,13 +88,18 @@ def tracing_off():
     trace.take()
 
 
-def run_golden(tracing: bool) -> dict:
+def golden_tracker(config: dict):
+    """(golden sequence, a CPU tracker of `config` on its camera and markers)."""
     d = np.load(os.path.join(os.path.dirname(__file__), "golden", "golden_sequence.npz"))
     cam = Camera.create(float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
                         np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
     markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)
-    step = make_tracker(cam, torch.from_numpy(markers), torch.ones(5, dtype=torch.bool),
-                        TrackerConfig(**CONFIG), device="cpu")
+    return d, make_tracker(cam, torch.from_numpy(markers), torch.ones(5, dtype=torch.bool),
+                           TrackerConfig(**config), device="cpu")
+
+
+def run_golden(tracing: bool) -> dict:
+    d, step = golden_tracker(CONFIG)
     state = TargetState.create(N, prng_key(0), device="cpu")
     out = {"states": [], "results": [], "syncs": [], "uploads": []}
     launches0 = (dk.detect_stats.launches, dk.detect_stats.pixels)
@@ -93,6 +122,37 @@ def run_golden(tracing: bool) -> dict:
 @pytest.fixture(scope="module")
 def runs():
     return {False: run_golden(False), True: run_golden(True)}
+
+
+def run_ipe(tracing: bool) -> dict:
+    d, step = golden_tracker(IPE)
+    state = TargetState.create(IPE["n_particles"], prng_key(0), device="cpu")
+    counts = step_mod.ipe_counts
+    out = {"states": [], "results": [], "syncs": [], "uploads": []}
+    counts0 = [getattr(counts, k) for k in type(counts).__slots__]
+    if tracing:
+        trace.enable()
+    for i in range(IPE_FRAMES):
+        if i == IPE_FALLBACK:
+            pred = state.predicted_pose.clone()
+            pred[0, 3] += 0.05
+            state = dataclasses.replace(state, predicted_pose=pred,
+                                        it_since_initialized=torch.tensor(1, dtype=torch.int32))
+        c0, u0 = step.host.count, step.host.uploads
+        state, res = step(state, torch.from_numpy(d["frames"][i]), float(d["times"][i]))
+        out["states"].append(state)
+        out["results"].append(res)
+        out["syncs"].append(step.host.count - c0)
+        out["uploads"].append(step.host.uploads - u0)
+    trace.disable()
+    out["spans"] = trace.take()
+    out["counts"] = [getattr(counts, k) - v for k, v in zip(type(counts).__slots__, counts0)]
+    return out
+
+
+@pytest.fixture(scope="module")
+def ipe_runs():
+    return {False: run_ipe(False), True: run_ipe(True)}
 
 
 def test_spans_nest_and_self_time_excludes_children():
@@ -213,3 +273,35 @@ def test_detect_stats_pixels_grow_by_each_launch(monkeypatch):
         dk.detect_stats(torch.empty((h, w), device="meta"), prm, taps.size)
     assert dk.detect_stats.launches - launches == 3
     assert dk.detect_stats.pixels - pixels == 2 * 192 * 256 + 64 * 48
+
+
+def test_ipe_spans_come_in_the_frames_order(ipe_runs):
+    spans = ipe_runs[True]["spans"]
+    for f, want in enumerate(IPE_SPAN_ORDER):
+        got = sorted((s for s in spans if s.frame == f), key=lambda s: s.start_ns)
+        assert [s.name for s in got] == want, f
+        root = got[0]
+        if f:  # every IPE stage is a child of the frame (the init frame nests detect)
+            assert all(s.parent == root.id for s in got[1:]), f
+        assert root.syncs == ipe_runs[True]["syncs"][f]
+        assert root.uploads == ipe_runs[True]["uploads"][f]
+    assert bench_spans.nesting_faults(spans) == []
+    flags = [int(r.fail_flag) for r in ipe_runs[True]["results"]]
+    assert flags == [int(FailFlag.INIT_SUCCESS)] + [int(FailFlag.PF_SUCCESS)] * 4 + [
+        int(FailFlag.INIT_SUCCESS)]
+    # frames, full-frame retries, checks, fallbacks, Gauss-Newton iterations
+    assert ipe_runs[True]["counts"] == [5, 1, 5, 1, 5 * TrackerConfig().gn_max_iterations]
+
+
+def test_ipe_tracing_off_records_nothing(ipe_runs):
+    assert ipe_runs[False]["spans"] == []
+
+
+def test_ipe_tracing_changes_no_tensor(ipe_runs):
+    off, on = ipe_runs[False], ipe_runs[True]
+    for a, b in zip(off["states"] + off["results"], on["states"] + on["results"]):
+        for field in dataclasses.fields(a):
+            x, y = getattr(a, field.name), getattr(b, field.name)
+            assert torch.equal(x, y), field.name
+    assert (off["syncs"], off["uploads"], off["counts"]) == (on["syncs"], on["uploads"],
+                                                             on["counts"])
