@@ -71,7 +71,8 @@ Phases (any failure raises and exits non-zero):
  12. exposure -- 20 frames with `use_online_exposure_control=True`: the
      exposure counters after every frame equal a host recomputation;
  13. ipe -- `use_particle_filter=False` with 64 particles: same bars, no
-     re-initialisation after frame 0, kernels B and D never launched;
+     re-initialisation after frame 0, kernels B and D and the fused refine
+     never launched, the one-pose refine (`refine_pose`) once a frame;
  14. realistic -- tests/golden/realistic_sequence.npz (120 uint8 frames
      with clutter) with configs/experiments/realistic_golden.yaml's
      settings: tracked >= 0.95, ATE <= 17 mm, orientation <= 5.62 deg;
@@ -839,6 +840,50 @@ def check_kernels(device, d, cam, markers):
     print(f"[timing] {card_line()}: refine layer op by op with D: event {r['chain_ms'] * 1e3:.1f} "
           f"us, device busy {r['chain_profiled_us']} us a call; fused: event "
           f"{r['ms'] * 1e3:.1f} us, device busy {r['profiled_us']} us a call")
+
+    # the one-pose refine (the IPE and init branches'): the picked particle's
+    # pose above from the five true pairs, gauss_newton_refine's iterations
+    # and covariance in one launch, against the plain twin (that function on
+    # the scalar camera) and gauss_newton_refine on the tracker's camera (the
+    # path without use_pallas_gn), both to the bit
+    from pf_monocular_pose_estimator_tpu_torch.pf.refine import gauss_newton_refine
+
+    scal_f, pre_f, mark_f, mmask_f, xy_f = rf_args[:5]
+    dfm5 = torch.arange(5, dtype=torch.int32, device=device)
+    rp_args = (scal_f, pre_f, mark_f, mmask_f, dfm5, xy_f)
+    got, want = rk.refine_pose(*rp_args), rk.refine_pose_plain(*rp_args)
+    corr = torch.stack([dfm5, dfm5], -1)
+    op = lambda: gauss_newton_refine(cam, pre_f, markers, xy_f, corr, mmask_f, 25, 1e-4)
+    chain = op()
+    torch.cuda.synchronize()
+    for name in ("pose", "covariance", "num_iterations"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), f"refine_pose: {name}"
+    err_p = float((got.pose - chain.pose).abs().max())
+    err_c = float((got.covariance - chain.covariance).abs().max())
+    print(f"[kernels] refine_pose M=5, K=16: exact against the twin, {int(got.num_iterations)} "
+          f"iterations; from gauss_newton_refine on the tracker's camera: pose {err_p}, "
+          f"covariance {err_c}, iterations {int(chain.num_iterations)}")
+    assert err_p == 0.0 and err_c == 0.0, "refine_pose: differs from gauss_newton_refine"
+    assert int(got.num_iterations) == int(chain.num_iterations)
+    # inputs: camera, pose, markers, mask, pairs and the five gathered
+    # detections; the output buffer; D's work on one row and the covariance
+    iters = int(got.num_iterations) + 2
+    b_ms, b_by = bound(16 + 64 + 80 + 5 + 20 + 40 + 4 * 53, iters * (100 * 5 + 450) + 300)
+    one = lambda: rk.refine_pose(*rp_args)
+    rows.append(dict(name="refine_pose", route="cuda",
+                     source="pf_monocular_pose_estimator_tpu_torch/csrc/gn_refine.cu",
+                     replaces="pf/refine.py::gauss_newton_refine of one pose (IPE and init)",
+                     max_abs_err=0.0, ms=time_ms(one), device_ms=device_time_ms(one),
+                     plain_ms=time_ms(lambda: rk.refine_pose_plain(*rp_args), 3),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     profiled_us=busy_us_per_call(one)[0], chain_ms=time_ms(op, 5),
+                     chain_profiled_us=busy_us_per_call(op)[0]))
+    r = rows[-1]
+    print(f"[timing] {card_line()}: one-pose refine: gauss_newton_refine op by op: event "
+          f"{r['chain_ms'] * 1e3:.1f} us, device busy {r['chain_profiled_us']} us a call; "
+          f"refine_pose: event {r['ms'] * 1e3:.1f} us, graph {r['device_ms'] * 1e3:.2f} us, "
+          f"device busy {r['profiled_us']} us a call; twin {r['plain_ms'] * 1e3:.1f} us; bound "
+          f"{b_ms * 1e3:.4f} us ({b_by})")
     return rows
 
 
@@ -1882,10 +1927,13 @@ def ported_options(device, d, cam, markers, card, main_run, counted_replay, warm
     out["exposure"] = dict(summary(exposure, warm_replay("exposure", EXPOSURE, SHORT_FRAMES)),
                            counters=got[-1])
 
-    # 13. IPE: no particle filter, so no kernel B and no batched GN
+    # 13. IPE: no particle filter, so no kernel B and no batched GN; every
+    # frame's one-pose refine (the init's too) is one launch of refine_pose
     ipe = counted_replay("ipe", IPE, n_particles=IPE_PARTICLES)
-    launched("ipe", ipe, ("threshold_blur", "detect_stats"))
-    assert ipe.launches["pf_step"] == 0 and ipe.launches["refine_frame"] == 0
+    launched("ipe", ipe, ("threshold_blur", "detect_stats", "refine_pose"))
+    assert ipe.launches["pf_step"] == ipe.launches["refine_frame"] == 0
+    assert ipe.launches["gn_refine"] == 0
+    assert ipe.launches["refine_pose"] == int(ipe.updated.sum()), ipe.launches
     reinit = np.flatnonzero(ipe.flags[1:] == 0).tolist()
     assert not reinit, f"ipe: re-initialised on frames {[f + 1 for f in reinit]}"
     idle = idle_share(device, d, cam, markers, overrides=IPE, n_particles=IPE_PARTICLES)
@@ -2531,7 +2579,8 @@ def main() -> int:
                 "monotone_gather": (gk.windowed_gather, "launches"),
                 "ring_gather": (hk.ring_gather, "launches"),
                 "gn_refine": (rk.gn_refine, "launches"),
-                "refine_frame": (rk.refine_frame, "launches")}
+                "refine_frame": (rk.refine_frame, "launches"),
+                "refine_pose": (rk.refine_pose, "launches")}
 
     def counted(tag, fn, *args, **kwargs):
         """fn(*args, **kwargs) with every launch count set to 0 just before

@@ -11,7 +11,8 @@
 // the left exp-map update and freeze the hypothesis once max |dt| <= tol.
 // After the budget: the final normal matrix, the largest pair residual and
 // the divergence revert.  The covariance (inv6_spd of the normal matrix) is
-// left to the caller, as in the reference.
+// left to the caller, as in the reference.  The fused refine below runs the
+// same warp body inside its larger launch.
 //
 // What bounds it on Hopper: latency.  11 hypotheses x 25 iterations x
 // ~600 FLOP is ~0.2 MFLOP of dependent scalar math; there is nothing to
@@ -725,6 +726,320 @@ refine_frame_kernel(const float* __restrict__ scal, const float* __restrict__ pr
   }
 }
 
+// ---------------------------------------------------------------------------
+// One pose's refine in one launch (`pf/refine_kernel.py::refine_pose`): the
+// Gauss-Newton of `pf/refine.py::gauss_newton_refine` on one pose, as torch
+// computes it op by op on the card, with the pairs' gather and the
+// covariance.  It serves no TPU kernel of its own: it is kernel #8's
+// one-pose form, for the reference's plain `gauss_newton_refine` of one pose
+// (`ipe_track_branch`'s refine and the init branch's), which
+// `tracker/step.py::Tracker._refine_from` runs op by op without
+// `use_pallas_gn`.
+//
+// The covariance of a 5-LED pose is ill-conditioned (cond ~3e4): a one-ulp
+// change of the final pose or of one normal-matrix entry moves it by ~2e-3
+// of its largest entry, as far as the benchmark's limit.  So this kernel is
+// not D's iteration: it repeats the op-by-op path's arithmetic to the bit.
+// Every elementwise op rounds as torch's kernel does (`/` by a host scalar
+// multiplies by its float reciprocal; --fmad=false keeps products and sums
+// apart), and every matmul and einsum sums in the order torch's cuBLAS call
+// takes on the card (`Sum` below, measured on the H100).  Lane q < M loads
+// marker q and gathers its detection (a pair is live where dfm[q] >= 0 and
+// the marker is unmasked) and stages its two Jacobian rows and residuals;
+// lanes 0..27 take the 21 + 6 normal-equation sums and the error, as D's
+// lanes do; the solve, exp map and compose run alike on every lane.
+// What bounds it: latency, as D: 25 dependent iterations on one warp; its
+// bytes (a few hundred) take D's ~0.001 us at 3.35 TB/s.
+
+// How torch's cuBLAS calls on the card sum a dot product of n terms
+// a[k] * b[k] (recorded on the H100 for every matmul and einsum of the path,
+// each layout on its own; every kind held to the bit over 60 problems at
+// M = 5, the einsums and the error sum at every M to 32):
+enum class Sum {
+  kFmaSeq,    // acc = 0; acc = fma(a[k], b[k], acc), k ascending: a matmul whose
+              // left operand is a transposed view, and einsum "cri,crj->ij"
+  kPlainSeq,  // acc = a[0] * b[0]; acc = acc + a[k] * b[k], each product rounded
+  kPairs,     // fma(a[k + 1], b[k + 1], a[k] * b[k]) for each pair, an odd last
+              // product rounded, the pairs' sums added in order: a matmul whose
+              // left operand is row-major
+  kHalves,    // kFmaSeq over each half (the first ceil(n / 2) terms, the rest),
+              // then their sum: einsum "cri,cr->i" (a matrix times a vector)
+};
+
+constexpr int kRowJ = 7;  // a residual's staged row: its Jacobian row (6), its residual
+
+// sum_k a[k * sa] * b[k * sb] over k in [lo, hi), one kind of sum
+template <Sum S>
+__device__ __forceinline__ float dot(const float* a, int sa, const float* b, int sb, int hi,
+                                     int lo = 0) {
+  if constexpr (S == Sum::kFmaSeq) {
+    float acc = 0.0f;
+    for (int k = lo; k < hi; ++k) acc = __fmaf_rn(a[k * sa], b[k * sb], acc);
+    return acc;
+  } else if constexpr (S == Sum::kPlainSeq) {
+    float acc = a[lo * sa] * b[lo * sb];
+    for (int k = lo + 1; k < hi; ++k) acc = acc + a[k * sa] * b[k * sb];
+    return acc;
+  } else if constexpr (S == Sum::kPairs) {
+    float acc = 0.0f;
+    for (int k = lo; k < hi; k += 2) {
+      float pair = a[k * sa] * b[k * sb];
+      if (k + 1 < hi) pair = __fmaf_rn(a[(k + 1) * sa], b[(k + 1) * sb], pair);
+      acc = k == lo ? pair : acc + pair;
+    }
+    return acc;
+  } else {
+    const int mid = lo + (hi - lo + 1) / 2;
+    return dot<Sum::kFmaSeq>(a, sa, b, sb, mid, lo) + dot<Sum::kFmaSeq>(a, sa, b, sb, hi, mid);
+  }
+}
+
+// einsum "ij,mj->mi" (the projection's pose row i times marker m) sums its
+// four terms in an order that depends on the M markers: kPairs at M = 1,
+// kPlainSeq for 2 <= M <= 16, kFmaSeq from 17 (recorded at every M to 32)
+__device__ __forceinline__ float proj_dot(const float* row, const float pt[4], int m) {
+  if (m == 1) return dot<Sum::kPairs>(row, 1, pt, 1, 4);
+  if (m <= 16) return dot<Sum::kPlainSeq>(row, 1, pt, 1, 4);
+  return dot<Sum::kFmaSeq>(row, 1, pt, 1, 4);
+}
+
+// out = a @ b for a (r x n), b (n x c), row-major with the given row strides
+template <Sum S>
+__device__ __forceinline__ void matmul(const float* a, int lda, const float* b, int ldb,
+                                       float* out, int r, int n, int c) {
+  for (int i = 0; i < r; ++i)
+    for (int j = 0; j < c; ++j) out[i * c + j] = dot<S>(a + i * lda, 1, b + j, ldb, n);
+}
+
+// `pf/refine.py::_inv3`: cofactors over the determinant
+__device__ __forceinline__ void ref_inv3(const float* m, int ld, float out[9]) {
+  float mm[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) mm[i][j] = m[i * ld + j];
+  float o[3][3];
+  inv3(mm, o);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) out[i * 3 + j] = o[i][j];
+}
+
+// `pf/refine.py::_jacobi`: 1 / sqrt|a_ii| (1 where 0) and the scaled matrix
+__device__ __forceinline__ void ref_jacobi(const float a[36], float a_s[36], float inv_d[6]) {
+  for (int i = 0; i < 6; ++i) {
+    const float d = sqrtf(fabsf(a[7 * i]));
+    inv_d[i] = 1.0f / (d > 0.0f ? d : 1.0f);
+  }
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j < 6; ++j) a_s[6 * i + j] = a[6 * i + j] * inv_d[i] * inv_d[j];
+}
+
+// the blocks P, Q (rows 0-2, columns 0-2 / 3-5) and S of a scaled 6x6, with
+// P^-1, Q^T P^-1 and the Schur complement's inverse (S - Q^T P^-1 Q)^-1
+__device__ __forceinline__ void ref_schur(const float a_s[36], float p_inv[9], float qt_pinv[9],
+                                          float schur_inv[9]) {
+  float qt[9], tmp[9], schur[9];
+  ref_inv3(a_s, 6, p_inv);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) qt[3 * i + j] = a_s[6 * j + 3 + i];
+  matmul<Sum::kFmaSeq>(qt, 3, p_inv, 3, qt_pinv, 3, 3, 3);  // Q^T @ P^-1
+  matmul<Sum::kPairs>(qt_pinv, 3, a_s + 3, 6, tmp, 3, 3, 3);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) schur[3 * i + j] = a_s[6 * (3 + i) + 3 + j] - tmp[3 * i + j];
+  ref_inv3(schur, 3, schur_inv);
+}
+
+// `pf/refine.py::solve6_spd(a, b, refine=False)`
+__device__ __forceinline__ void ref_solve6(const float a[36], const float b[6], float x[6]) {
+  float a_s[36], inv_d[6], b_s[6], p_inv[9], qt_pinv[9], schur_inv[9];
+  ref_jacobi(a, a_s, inv_d);
+  for (int i = 0; i < 6; ++i) b_s[i] = b[i] * inv_d[i];
+  ref_schur(a_s, p_inv, qt_pinv, schur_inv);
+  float t[3], r[3], x1[3], x2[3];
+  matmul<Sum::kPairs>(qt_pinv, 3, b_s, 1, t, 3, 3, 1);
+  for (int i = 0; i < 3; ++i) r[i] = b_s[3 + i] - t[i];
+  matmul<Sum::kPairs>(schur_inv, 3, r, 1, x2, 3, 3, 1);
+  matmul<Sum::kPairs>(a_s + 3, 6, x2, 1, t, 3, 3, 1);
+  for (int i = 0; i < 3; ++i) r[i] = b_s[i] - t[i];
+  matmul<Sum::kPairs>(p_inv, 3, r, 1, x1, 3, 3, 1);
+  for (int i = 0; i < 3; ++i) x[i] = x1[i] * inv_d[i], x[3 + i] = x2[i] * inv_d[3 + i];
+}
+
+// `pf/refine.py::inv6_spd` of one matrix
+__device__ __forceinline__ void ref_inv6(const float a[36], float out[36]) {
+  float a_s[36], inv_d[6], p_inv[9], qt_pinv[9], schur_inv[9];
+  ref_jacobi(a, a_s, inv_d);
+  ref_schur(a_s, p_inv, qt_pinv, schur_inv);
+  float tq[9], nq[9], t1[9], t2[9], tr[9];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) tq[3 * i + j] = qt_pinv[3 * j + i], nq[3 * i + j] = -tq[3 * i + j];
+  matmul<Sum::kFmaSeq>(tq, 3, schur_inv, 3, t1, 3, 3, 3);  // (Q^T P^-1)^T @ S^-1
+  matmul<Sum::kPairs>(t1, 3, qt_pinv, 3, t2, 3, 3, 3);
+  matmul<Sum::kFmaSeq>(nq, 3, schur_inv, 3, tr, 3, 3, 3);  // its negation's, transposed too
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      out[6 * i + j] = (p_inv[3 * i + j] + t2[3 * i + j]) * inv_d[i] * inv_d[j];
+      out[6 * i + 3 + j] = tr[3 * i + j] * inv_d[i] * inv_d[3 + j];
+      out[6 * (3 + i) + j] = tr[3 * j + i] * inv_d[3 + i] * inv_d[j];
+      out[6 * (3 + i) + 3 + j] = schur_inv[3 * i + j] * inv_d[3 + i] * inv_d[3 + j];
+    }
+}
+
+// torch.clamp(x, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+
+// `geometry/se3.py::exp_se3` of one twist -> the 4x4 transform, row-major
+__device__ __forceinline__ void ref_exp(const float dt[6], float e[16]) {
+  const float wx = dt[3], wy = dt[4], wz = dt[5];
+  const float th2 = (wx * wx + wz * wz) + wy * wy;  // torch.sum's butterfly over 3
+  const float om[9] = {0.0f, -wz, wy, wz, 0.0f, -wx, -wy, wx, 0.0f};
+  float om2[9];
+  matmul<Sum::kPairs>(om, 3, om, 3, om2, 3, 3, 3);
+  const float theta = sqrtf(clamp_min(th2, 0.0f));
+  const bool small = th2 < kEpsTheta;
+  const float safe = small ? 1.0f : theta;
+  const float sn = sinf(safe), cs = cosf(safe);
+  // `x / c` by a host scalar c is x * (1 / c) in float on the card
+  const float a = small ? 1.0f - th2 * (1.0f / 6.0f) : sn / safe;
+  const float b = small ? 0.5f - th2 * (1.0f / 24.0f) : (1.0f - cs) / clamp_min(th2, kEpsTheta);
+  const float c = small ? (float)(1.0 / 6.0) - th2 * (1.0f / 120.0f)
+                        : (safe - sn) / clamp_min(th2 * safe, kEpsTheta);
+  float rot[9], v[9], t[3];
+  for (int i = 0; i < 9; ++i) {
+    const float eye = (i % 4 == 0) ? 1.0f : 0.0f;
+    rot[i] = (eye + a * om[i]) + b * om2[i];
+    v[i] = (eye + b * om[i]) + c * om2[i];
+  }
+  matmul<Sum::kPairs>(v, 3, dt, 1, t, 3, 3, 1);
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) e[4 * i + j] = rot[3 * i + j];
+    e[4 * i + 3] = t[i];
+  }
+  e[12] = e[13] = e[14] = 0.0f, e[15] = 1.0f;
+}
+
+// This lane's sum of `pf/refine.py::_residuals_and_normal_eqs` at pose p
+// (lanes 0..20: A's upper triangle, 21..26: b, 27: the error).  Lane q < m
+// stages pair q's rows 2q and 2q + 1 of J (u, v) and their residuals.
+template <int M>
+__device__ __forceinline__ float ref_normal_sums(const float p[16], int lane, int m,
+                                                 const float pt[4], float du, float dv, bool live,
+                                                 float fx, float fy, float cx, float cy,
+                                                 float* stage) {
+  if constexpr (M > 0) m = M;
+  __syncwarp();
+  if (lane < m) {
+    const float x = proj_dot(p, pt, m);
+    const float y = proj_dot(p + 4, pt, m);
+    const float z = proj_dot(p + 8, pt, m);
+    const float sz = fabsf(z) < 1e-12f ? 1e-12f : z;
+    const float u = fx * x / sz + cx;
+    const float v = fy * y / sz + cy;
+    const float zj = fabsf(z) < 1e-9f ? 1e-9f : z;
+    const float z2 = zj * zj;
+    const float nfx = -fx, nfy = -fy;
+    const float ju[6] = {fx / zj, 0.0f, nfx * x / z2, nfx * x * y / z2,
+                         fx * (1.0f + x * x / z2), nfx * y / zj};
+    const float jv[6] = {0.0f, fy / zj, nfy * y / z2, nfy * (1.0f + y * y / z2),
+                         fy * x * y / z2, fy * x / zj};
+    float* ru = stage + (2 * lane) * kRowJ;
+    float* rv = ru + kRowJ;
+    for (int i = 0; i < 6; ++i) ru[i] = live ? ju[i] : 0.0f, rv[i] = live ? jv[i] : 0.0f;
+    ru[6] = live ? du - u : 0.0f;
+    rv[6] = live ? dv - v : 0.0f;
+  }
+  __syncwarp();
+  const int n = 2 * m;
+  // the error: torch.sum of the squares, a butterfly over the lanes (lane t
+  // holds square t, and t + 32 added first where there are more than 32)
+  float err = 0.0f;
+  if (lane < n) err = stage[lane * kRowJ + 6] * stage[lane * kRowJ + 6];
+  if (lane + 32 < n) err = err + stage[(lane + 32) * kRowJ + 6] * stage[(lane + 32) * kRowJ + 6];
+  for (int off = 16; off > 0; off >>= 1) err = err + __shfl_xor_sync(kFull, err, off);
+  if (lane < 21) {
+    int i = 0, rest = lane;
+    while (rest >= 6 - i) rest -= 6 - i, ++i;
+    return dot<Sum::kFmaSeq>(stage + i, kRowJ, stage + i + rest, kRowJ, n);
+  }
+  if (lane < 27) return dot<Sum::kHalves>(stage + lane - 21, kRowJ, stage + 6, kRowJ, n);
+  return err;
+}
+
+// the damped normal matrix (lanes' sums -> every lane) and b
+__device__ __forceinline__ void ref_gather_normal(float sum, float a[36], float b[6]) {
+  for (int e = 0; e < 36; ++e) a[e] = amat_entry(sum, e) + (e / 6 == e % 6 ? kDamping : 0.0f);
+  for (int i = 0; i < 6; ++i) b[i] = __shfl_sync(kFull, sum, 21 + i);
+}
+
+// scal [fx, fy, cx, cy]; pose0 (16); mark (4, M) rows x, y, z, w;
+// marker_mask (M) bool; dfm (M) int32; det_xy (K, 2).  out: the pose (16),
+// the covariance (36), then the iterations as an int32.
+template <int M>
+__global__ void __launch_bounds__(32)
+refine_pose_kernel(const float* __restrict__ scal, const float* __restrict__ pose0,
+                   const float* __restrict__ mark, const unsigned char* __restrict__ marker_mask,
+                   const int* __restrict__ dfm, const float* __restrict__ det_xy, int m_rt, int k,
+                   int max_iter, float tol, float* __restrict__ out) {
+  __shared__ float stage[2 * (M > 0 ? M : kMaxM) * kRowJ];
+  const int m = M > 0 ? M : m_rt;
+  const int lane = threadIdx.x;
+  const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
+  float pt[4] = {0.0f, 0.0f, 0.0f, 0.0f}, du = 0.0f, dv = 0.0f;
+  bool live = false;
+  if (lane < m) {
+    for (int r = 0; r < 4; ++r) pt[r] = mark[r * m + lane];
+    const int e = dfm[lane];
+    const int idx = min(max(e, 0), k - 1);
+    du = det_xy[2 * idx];
+    dv = det_xy[2 * idx + 1];
+    live = e >= 0 && marker_mask[lane] != 0;
+  }
+  float p0[16], p[16];
+  for (int i = 0; i < 16; ++i) p[i] = p0[i] = pose0[i];
+  float sum = ref_normal_sums<M>(p, lane, m, pt, du, dv, live, fx, fy, cx, cy, stage);
+  const float err0 = __shfl_sync(kFull, sum, 27);
+  int n_iter = 0;
+  for (int it = 0; it < max_iter; ++it) {
+    float a[36], b[6], dt[6], e[16], np[16];
+    ref_gather_normal(sum, a, b);
+    ref_solve6(a, b, dt);
+    float step = 0.0f;
+    for (int i = 0; i < 6; ++i) {
+      dt[i] = isfinite(dt[i]) ? dt[i] : 0.0f;
+      step = fmaxf(step, fabsf(dt[i]));
+    }
+    ref_exp(dt, e);
+    matmul<Sum::kPairs>(e, 4, p, 4, np, 4, 4, 4);
+    for (int i = 0; i < 16; ++i) p[i] = np[i];
+    ++n_iter;
+    // the next iteration's system, or the final one
+    sum = ref_normal_sums<M>(p, lane, m, pt, du, dv, live, fx, fy, cx, cy, stage);
+    // a converged pose stops moving: the rest of the budget changes nothing
+    if (step <= tol) break;
+  }
+  const bool diverged = __shfl_sync(kFull, sum, 27) > err0;
+  float a[36], b[6], cov[36];
+  ref_gather_normal(sum, a, b);
+  ref_inv6(a, cov);
+  for (int i = 0; i < 16; ++i)
+    if (lane == i) out[i] = diverged ? p0[i] : p[i];
+  for (int r = 0; r < 2; ++r) {
+    const int e = lane + 32 * r;
+    float c = 0.0f;
+    for (int i = 0; i < 36; ++i)
+      if (i == e) c = cov[i];
+    if (e < 36) out[16 + e] = c;
+  }
+  if (lane == 0) reinterpret_cast<int*>(out)[52] = n_iter;
+}
+
+template <int M>
+int launch_pose(const float* scal, const float* pose0, const float* mark,
+                const unsigned char* marker_mask, const int* dfm, const float* det_xy, int m,
+                int k, int max_iter, float tol, float* out, cudaStream_t st) {
+  refine_pose_kernel<M><<<1, 32, 0, st>>>(scal, pose0, mark, marker_mask, dfm, det_xy, m, k,
+                                          max_iter, tol, out);
+  return (int)cudaGetLastError();
+}
+
 template <int M>
 int launch_frame(const float* scal, const float* pre_gn, const float* mark,
                  const unsigned char* marker_mask, const float* det_xy,
@@ -787,4 +1102,18 @@ extern "C" int pfmpe_refine_frame(const float* scal, const float* pre_gn, const 
                                        jump_thr, predicted, trust, m, k, max_iter, tol, gate,
                                        step_radius, jump_radius, flags, out, info, jump,
                                        (cudaStream_t)stream);
+}
+
+extern "C" int pfmpe_refine_pose(const float* scal, const float* pose0, const float* mark,
+                                 const unsigned char* marker_mask, const int* dfm,
+                                 const float* det_xy, int m, int k, int max_iter, float tol,
+                                 float* out, void* stream) {
+  if (m < 1 || m > kMaxM || k < 1) return (int)cudaErrorInvalidValue;
+  using Launch = int (*)(const float*, const float*, const float*, const unsigned char*,
+                         const int*, const float*, int, int, int, float, float*, cudaStream_t);
+  constexpr Launch kLaunch[kFixedM + 1] = {launch_pose<0>, launch_pose<1>, launch_pose<2>,
+                                           launch_pose<3>, launch_pose<4>, launch_pose<5>,
+                                           launch_pose<6>, launch_pose<7>, launch_pose<8>};
+  return kLaunch[m <= kFixedM ? m : 0](scal, pose0, mark, marker_mask, dfm, det_xy, m, k,
+                                       max_iter, tol, out, (cudaStream_t)stream);
 }

@@ -1,10 +1,10 @@
 """Gauss-Newton pose refinement (port of `pf/refine.py`).
 
-`gauss_newton_refine` takes one pose or a batch of them: the init branch
-refines its single candidate with it, and with `use_pallas_gn` off the
-track branch refines its hypotheses with it, the batch written out where
-the reference vmaps.  With `use_pallas_gn` on (the default) the
-hypotheses go through kernel D (`pf.refine_kernel`)."""
+`gauss_newton_refine` takes one pose or a batch of them: with
+`use_pallas_gn` off the init and IPE branches refine their single pose with
+it and the track branch its hypotheses, the batch written out where the
+reference vmaps.  With `use_pallas_gn` on (the default) both go through
+`pf.refine_kernel` (`refine_pose` and `refine_frame`)."""
 
 from __future__ import annotations
 

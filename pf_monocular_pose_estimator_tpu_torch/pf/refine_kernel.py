@@ -14,6 +14,11 @@ reference.
 refine_hypotheses` op by op): the picked particle's greedy pairs, its 2M + 1
 binding hypotheses, D's iterations on each, the feasibility pick, the jump
 test and teleport guard, and the picked hypothesis's covariance.
+
+`refine_pose` is one launch of the refine that `pf/refine.py::
+gauss_newton_refine` runs op by op for the init branch and the IPE track
+branch (one pose, given pairs), with the pairs' gather and the covariance,
+in that function's arithmetic to the bit.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import cuda_lib
-from .refine import RefineResult, inv6_spd
+from .refine import RefineResult, gauss_newton_refine, inv6_spd
 from .weight_kernel import MAX_DETECTIONS, MAX_MARKERS
 
 DAMPING = 1e-8
@@ -418,3 +423,81 @@ def refine_frame(scal, pre_gn, mark, marker_mask, det_xy, det_mask, tol_pf, jump
 
 refine_frame.launches = 0
 refine_frame.calls = 0
+
+
+class PoseRefine(NamedTuple):
+    """`refine_pose`'s result: the refined pose (4, 4), its covariance (6, 6)
+    and the iterations run (0-d int32)."""
+
+    pose: torch.Tensor
+    covariance: torch.Tensor
+    num_iterations: torch.Tensor
+
+
+class _Pinhole(NamedTuple):
+    """The camera fields `gauss_newton_refine` reads, as 0-d tensors."""
+
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+
+
+def refine_pose_plain(scal, pose0, mark, marker_mask, det_for_marker, det_xy,
+                      max_iterations: int = 25, convergence_tol: float = 1e-4) -> PoseRefine:
+    """Plain twin of `refine_pose`; same inputs, same outputs: `pf/refine.py::
+    gauss_newton_refine` of the one pose, the path op by op whose arithmetic
+    the kernel repeats."""
+    m = mark.shape[1]
+    marker_ids = torch.arange(m, dtype=torch.int32, device=pose0.device)
+    corr = torch.stack([marker_ids, det_for_marker.to(torch.int32)], -1)
+    res = gauss_newton_refine(_Pinhole(*scal[:4]), pose0, mark.T, det_xy, corr,
+                              (det_for_marker >= 0) & marker_mask, max_iterations,
+                              convergence_tol)
+    return PoseRefine(res.pose, res.covariance, res.num_iterations)
+
+
+def refine_pose(scal, pose0, mark, marker_mask, det_for_marker, det_xy,
+                max_iterations: int = 25, convergence_tol: float = 1e-4) -> PoseRefine:
+    """One pose's Gauss-Newton in one launch of `refine_pose_kernel`: what
+    `gauss_newton_refine` computes op by op on the card, to the bit.
+
+    scal (4,) [fx, fy, cx, cy]; pose0 (4, 4); mark (4, M) the homogeneous
+    markers as rows x, y, z, w; marker_mask (M,) bool; det_for_marker (M,)
+    int32, the detection of each marker (-1 unbound); det_xy (K, 2).  A pair
+    is live where its marker is unmasked and bound.  The pose, covariance and
+    iterations (0-d int32) are views of one output buffer.  CPU tensors take
+    the plain twin, CUDA tensors the kernel (tensors on both raise).
+    `.calls` counts every call, `.launches` the kernel's."""
+    refine_pose.calls += 1
+    if any(t.dtype != torch.float32 for t in (scal, pose0, mark, det_xy)):
+        raise ValueError("refine_pose: the camera, pose, markers and detections must be float32")
+    m, k = mark.shape[1], det_xy.shape[0]
+    if (scal.shape != (4,) or pose0.shape != (4, 4) or mark.shape != (4, m)
+            or marker_mask.shape != (m,) or det_for_marker.shape != (m,)
+            or det_xy.shape != (k, 2)):
+        raise ValueError("refine_pose: inconsistent shapes")
+    tensors = (scal, pose0, mark, marker_mask, det_for_marker, det_xy)
+    if all(t.device.type == "cpu" for t in tensors):
+        return refine_pose_plain(scal, pose0, mark, marker_mask, det_for_marker, det_xy,
+                                 max_iterations, convergence_tol)
+    cuda_lib.require_cuda("refine_pose", *tensors)
+    if not (1 <= m <= MAX_MARKERS and k >= 1):
+        raise ValueError(f"refine_pose: the kernel takes 1 <= M <= {MAX_MARKERS} markers and a "
+                         f"detection slot at least (got M = {m}, K = {k})")
+    if marker_mask.dtype != torch.bool or det_for_marker.dtype != torch.int32:
+        raise ValueError("refine_pose: the marker mask must be bool and det_for_marker int32")
+    scal, pose0, mark, marker_mask, det_for_marker, det_xy = (t.contiguous() for t in tensors)
+    lib = cuda_lib.library()
+    out = torch.empty(53, dtype=torch.float32, device=pose0.device)
+    code = lib.pfmpe_refine_pose(scal.data_ptr(), pose0.data_ptr(), mark.data_ptr(),
+                                 marker_mask.data_ptr(), det_for_marker.data_ptr(),
+                                 det_xy.data_ptr(), m, k, max_iterations, float(convergence_tol),
+                                 out.data_ptr(), cuda_lib.stream_ptr(pose0))
+    refine_pose.launches += 1
+    cuda_lib.check(code, "pfmpe_refine_pose")
+    return PoseRefine(out[:16].view(4, 4), out[16:52].view(6, 6), out[52:].view(torch.int32)[0])
+
+
+refine_pose.launches = 0
+refine_pose.calls = 0

@@ -43,7 +43,9 @@ from ..ops.exposure import ExposureState, exposure_control
 from ..ops.faults import inject_faults
 from ..pf.propagate import NoiseBounds, propagation_noise_factors
 from ..pf.refine import gauss_newton_refine
-from ..pf.refine_kernel import gauss_newton_refine_batched, refine_frame
+from ..pf import refine_kernel
+from ..pf.refine_kernel import (gauss_newton_refine_batched, refine_frame, refine_pose,
+                                refine_pose_plain)
 from ..pf.resample_kernel import resample_bank
 from ..pf.soa import (
     propagate_soa,
@@ -80,8 +82,10 @@ class IpeCounts:
     the host already holds: `frames` entered the branch, `full_frame`
     retried detection on the whole frame, `checked` reached the consensus
     check, `fallback` failed it and ran the brute-force initialisation, and
-    `gn_iterations` Gauss-Newton iterations ran op by op from the
-    host (`gn_max_iterations` a refine)."""
+    `gn_iterations` Gauss-Newton iterations ran op by op from the host
+    (`gn_max_iterations` a refine that did not launch `refine_pose`'s
+    kernel: without `use_pallas_gn`, or on the CPU, where its plain twin
+    runs)."""
 
     __slots__ = ("frames", "full_frame", "checked", "fallback", "gn_iterations")
 
@@ -175,7 +179,7 @@ class Tracker:
         m = self.markers_h.shape[0]
         down = list(config.marker_downgrade) + [False] * (m - len(config.marker_downgrade))
         self.downgrade = torch.tensor(down[:m], dtype=torch.bool, device=self.device)
-        # the fused refine's camera and markers, made once
+        # the fused and one-pose refines' camera and markers, made once
         c = self.camera
         self._gn_scal = torch.stack([c.fx, c.fy, c.cx, c.cy]).float()
         self._gn_mark = self.markers_h.T.contiguous()
@@ -226,15 +230,13 @@ class Tracker:
         return det, self.host(det.count)
 
     def _refine_from(self, pose0, det_for_marker, det):
-        """Gauss-Newton (plain torch, one pose) from `pose0` on the pairs
-        (marker m, detection det_for_marker[m])."""
+        """Gauss-Newton on one pose from `pose0` on the pairs (marker m,
+        detection det_for_marker[m]): with `use_pallas_gn` one launch of
+        `refine_pose`, else `gauss_newton_refine` op by op (its plain twin)."""
         c = self.config
-        m = self.markers_h.shape[0]
-        corr = torch.stack([torch.arange(m, dtype=torch.int32, device=self.device),
-                            det_for_marker], -1)
-        corr_mask = (det_for_marker >= 0) & self.marker_mask
-        return gauss_newton_refine(self.camera, pose0, self.markers_h, det.xy, corr, corr_mask,
-                                   c.gn_max_iterations, c.gn_convergence_tol)
+        refine = refine_pose if c.use_pallas_gn else refine_pose_plain
+        return refine(self._gn_scal, pose0, self._gn_mark, self.marker_mask, det_for_marker,
+                      det.xy, c.gn_max_iterations, c.gn_convergence_tol)
 
     def _update_pose_times(self, state: TargetState, t: torch.Tensor, new_current):
         advance = ((t - state.time_current) > 0.001) | (t < state.time_current)
@@ -618,6 +620,7 @@ class Tracker:
             return state, det, self._t(0.0), False
 
         ipe_counts.checked += 1
+        launches = refine_kernel.refine_pose.launches
         with trace.span("ipe.check"):
             dd = pix[:, None, :] - det.xy[None, :, :]
             d2 = torch.sum(dd * dd, dim=-1)  # (M, K)
@@ -647,7 +650,8 @@ class Tracker:
                 res = self._refine_from(init_res.pose, init_res.det_for_marker, det)
             state = state.replace(current_pose=init_res.pose)
             flag = FailFlag.INIT_SUCCESS
-        ipe_counts.gn_iterations += c.gn_max_iterations  # gauss_newton_refine's host loop
+        if refine_kernel.refine_pose.launches == launches:  # the iterations ran from the host
+            ipe_counts.gn_iterations += c.gn_max_iterations
         state = state.replace(
             predicted_pose=res.pose,
             covariance=res.covariance,

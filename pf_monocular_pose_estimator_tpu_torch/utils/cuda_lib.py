@@ -46,6 +46,7 @@ _SIGNATURES = {
     "pfmpe_gn_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     "pfmpe_refine_frame": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                            _I, _P, _P, _P, _P),
+    "pfmpe_refine_pose": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
 }
 
 _lib = None

@@ -169,6 +169,54 @@ if __name__ != "__main__":
         assert run.load_reader("ipe.gn_iterations_per_frame")({}) == 0.0
         assert run.load_reader("ipe.fallback_share")({}) == 0.0
 
+    def test_gn_iterations_not_counted_where_the_kernel_launched(monkeypatch):
+        """`ipe_counts.gn_iterations` counts the Gauss-Newton iterations run
+        from the host: a refine whose `refine_pose` call launched the kernel
+        adds none.  Four IPE golden frames on the CPU, with the wrapper made
+        to count a launch around its plain twin, and without."""
+        import numpy as np
+        import torch
+
+        import pf_monocular_pose_estimator_tpu_torch.tracker.step as step_mod
+        from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
+        from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel
+        from pf_monocular_pose_estimator_tpu_torch.tracker import TargetState, make_tracker
+        from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+        from pf_monocular_pose_estimator_tpu_torch.utils.prng import prng_key
+
+        d = np.load(ROOT / "tests" / "golden" / "golden_sequence.npz")
+        cam = Camera.create(float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
+                            np.asarray(d["dist"], np.float32), int(d["width"]),
+                            int(d["height"]))
+        markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)
+        real = refine_kernel.refine_pose
+
+        def launched(*a, **k):
+            out = real(*a, **k)
+            real.launches += 1
+            return out
+
+        monkeypatch.setattr(real, "launches", real.launches)
+        counted = {}
+        for mode in ("launched", "twin"):
+            if mode == "launched":
+                monkeypatch.setattr(step_mod, "refine_pose", launched)
+            else:
+                monkeypatch.setattr(step_mod, "refine_pose", real)
+            monkeypatch.setattr(step_mod, "ipe_counts", step_mod.IpeCounts())
+            step = make_tracker(cam, torch.from_numpy(markers), torch.ones(5, dtype=torch.bool),
+                                TrackerConfig(use_particle_filter=False, n_particles=64,
+                                              min_blob_area=8.0), device="cpu")
+            state = TargetState.create(64, prng_key(0), device="cpu")
+            for i in range(4):
+                state, res = step(state, torch.from_numpy(d["frames"][i]), float(d["times"][i]))
+                assert bool(res.pose_updated), (mode, i)
+            counted[mode] = step_mod.ipe_counts
+        # frame 0 initialises; frames 1-3 are IPE frames, each refined once
+        assert counted["launched"].frames == counted["launched"].checked == 3
+        assert counted["launched"].gn_iterations == 0
+        assert counted["twin"].gn_iterations == 3 * TrackerConfig().gn_max_iterations
+
 
 if __name__ == "__main__":
     print(json.dumps(run_here(sys.argv[1])), flush=True)

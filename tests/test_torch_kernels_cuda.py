@@ -1022,6 +1022,175 @@ def test_tracker_refines_in_one_launch(dev):
     assert rk.gn_refine.launches == d_launches
 
 
+# the benchmark's uav1 camera [fx, fy, cx, cy] and 5-LED constellation
+# (portbench/configs/uav1-100k.json)
+UAV1_CAM = (621.75, 621.39, 404.95, 238.26)
+UAV1_MARKERS = ((0.0714, 0.0800, 0.0622), (0.0400, -0.0912, 0.0317), (-0.0647, -0.0879, 0.0830),
+                (-0.0558, -0.0165, 0.0534), (0.0, 0.12, 0.0))
+
+
+def _pose_problems(m, dev):
+    """`refine_pose`'s inputs at M markers 1.4 m in front of the camera: a
+    start at the optimum of noise-free pairs, which converges on iteration 1;
+    one 0.02 off with 0.3 px of noise whose dropped pairs are an unbound
+    marker (-1) and a masked one; and the first of a list of far starts along
+    the optical axis from which the op-by-op path ends with a larger error
+    than it began with, so it reverts to the start.  The pairs sit in
+    K = M + 3 detection slots in shuffled order, among garbage slots."""
+    from pf_monocular_pose_estimator_tpu_torch.pf.refine import gauss_newton_refine
+
+    rng = np.random.default_rng(m)
+    gt = exp_se3(torch.tensor([0.02, -0.01, 0.0, 0.1, 0.2, 0.0]))
+    gt[2, 3] += 1.4
+    mark = torch.from_numpy(rng.normal(0, 0.08, (3, m)).astype(np.float32))
+    pts = gt[:3, :3] @ mark + gt[:3, 3:]
+    uv = torch.stack([420.0 * pts[0] / pts[2] + 376.0, 418.0 * pts[1] / pts[2] + 240.0], -1)
+    noisy = uv + torch.from_numpy(rng.normal(0, 0.3, (m, 2)).astype(np.float32))
+    scal = torch.tensor([420.0, 418.0, 376.0, 240.0])
+    mark4 = torch.cat([mark, torch.ones(1, m)]).contiguous()
+    k = m + 3
+    slots = torch.from_numpy(rng.permutation(k)[:m].astype(np.int32))
+
+    def problem(pose0, pairs_uv, unbound=(), masked=()):
+        det_xy = torch.from_numpy(rng.uniform(0.0, 700.0, (k, 2)).astype(np.float32))
+        det_xy[slots.long()] = pairs_uv
+        dfm, marker_mask = slots.clone(), torch.ones(m, dtype=torch.bool)
+        dfm[list(unbound)] = -1
+        marker_mask[list(masked)] = False
+        return tuple(t.to(dev) for t in (scal, pose0, mark4, marker_mask, dfm, det_xy))
+
+    start = exp_se3(torch.from_numpy(rng.normal(0, 0.02, 6).astype(np.float32))) @ gt
+    dropped = ((1,), (2,)) if m >= 4 else (((0,), ()) if m == 1 else ((), (m - 1,)))
+    out = [("frozen", problem(gt, uv)), ("dropped", problem(start, noisy, *dropped))]
+    for z in (3.0, 5.0, 10.0, 20.0, 40.0, 80.0):
+        for rx in (0.0, 0.3, -0.5, 1.0):
+            far = exp_se3(torch.tensor([0.0, 0.0, z, rx, 0.0, 0.0])) @ gt
+            args = problem(far, noisy)
+            cam = rk._Pinhole(*args[0])
+            corr = torch.stack([torch.arange(m, dtype=torch.int32, device=dev), args[4]], -1)
+            res = gauss_newton_refine(cam, args[1], args[2].T, args[5], corr,
+                                      torch.ones(m, dtype=torch.bool, device=dev), 25, 1e-4)
+            if float(res.final_error) == float(res.initial_error) and int(res.num_iterations):
+                return out + [("diverging", args)]
+    raise AssertionError(f"M={m}: no far start diverged")
+
+
+def _orbit_problem(dev, seed=0):
+    """The IPE cell's refine: uav1's camera and five LEDs 1.5 m away, the
+    pose tilted as on the orbit, detections 0.3 px off their projections,
+    the start 0.01 off (the consensus pose's distance)."""
+    rng = np.random.default_rng(seed)
+    gt = exp_se3(torch.tensor([0.05, -0.03, 0.0, 0.2, -0.3, 0.1]))
+    gt[2, 3] += 1.5
+    xyz = torch.tensor(UAV1_MARKERS).T
+    pts = gt[:3, :3] @ xyz + gt[:3, 3:]
+    fx, fy, cx, cy = UAV1_CAM
+    uv = torch.stack([fx * pts[0] / pts[2] + cx, fy * pts[1] / pts[2] + cy], -1)
+    det_xy = torch.from_numpy(rng.uniform(0.0, 700.0, (16, 2)).astype(np.float32))
+    det_xy[:5] = uv + torch.from_numpy(rng.normal(0.0, 0.3, (5, 2)).astype(np.float32))
+    pose0 = exp_se3(torch.from_numpy(rng.normal(0.0, 0.01, 6).astype(np.float32))) @ gt
+    return tuple(t.to(dev) for t in (torch.tensor(UAV1_CAM), pose0,
+                                     torch.cat([xyz, torch.ones(1, 5)]).contiguous(),
+                                     torch.ones(5, dtype=torch.bool),
+                                     torch.arange(5, dtype=torch.int32), det_xy))
+
+
+def _check_refine_pose(args, tag):
+    """The one-pose refine against its plain twin, `pf/refine.py::
+    gauss_newton_refine` op by op on the card: pose, covariance and
+    iterations equal to the bit, one launch a call.  The covariance is also
+    `inv6_spd` of the normal matrix that function builds at the kernel's own
+    pose, to the bit: the kernel repeats its arithmetic, and a 5-LED pose's
+    covariance (cond ~3e4) moves by ~2e-3 of its largest entry under a
+    one-ulp change of that matrix, as far as the benchmark's limit."""
+    from pf_monocular_pose_estimator_tpu_torch.pf import refine
+
+    launches, calls = rk.refine_pose.launches, rk.refine_pose.calls
+    got = rk.refine_pose(*args, 25, 1e-4)
+    assert rk.refine_pose.launches == launches + 1 and rk.refine_pose.calls == calls + 1
+    want = rk.refine_pose_plain(*args, 25, 1e-4)
+    scal, pose0, mark, marker_mask, dfm, det_xy = args
+    corr = torch.stack([torch.arange(len(dfm), dtype=torch.int32, device=dfm.device), dfm], -1)
+    a_mat = refine._residuals_and_normal_eqs(rk._Pinhole(*scal), got.pose, mark.T, det_xy, corr,
+                                             (dfm >= 0) & marker_mask)[0]
+    cov = refine.inv6_spd(a_mat + torch.eye(6, device=a_mat.device) * rk.DAMPING)
+    torch.cuda.synchronize()
+    for name in ("pose", "covariance", "num_iterations"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=0,
+                                   equal_nan=True, msg=f"{tag}: {name}")
+    assert got.num_iterations.dtype == torch.int32 and got.num_iterations.shape == ()
+    if not torch.equal(got.pose, pose0):  # a reverted pose keeps the last one's matrix
+        torch.testing.assert_close(got.covariance, cov, rtol=0, atol=0, equal_nan=True, msg=tag)
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 32])
+def test_refine_pose_every_m_exact(dev, m):
+    """Every M of the fixed instantiations and three on the runtime-count one
+    (M = 0): a start that converges on iteration 1, one with an unbound and a
+    masked marker, one that diverges and reverts to its start."""
+    for name, args in _pose_problems(m, dev):
+        got = _check_refine_pose(args, f"M={m} {name}")
+        if name == "frozen":
+            assert int(got.num_iterations) == 1
+        if name == "diverging":
+            assert torch.equal(got.pose, args[1])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_refine_pose_orbit_exact(dev, seed):
+    """The IPE cell's case: five LEDs of uav1's constellation, every pair live."""
+    args = _orbit_problem(dev, seed)
+    got = _check_refine_pose(args, f"orbit seed {seed}")
+    assert not torch.equal(got.pose, args[1]) and 1 < int(got.num_iterations) < 25
+
+
+def test_refine_pose_rejects_bad_input(dev):
+    args = _orbit_problem(dev)
+    bad = list(args)
+    bad[4] = bad[4].long()  # det_for_marker as int64
+    with pytest.raises(ValueError):
+        rk.refine_pose(*bad)
+    bad = list(args)
+    bad[3] = bad[3].float()  # the marker mask as float
+    with pytest.raises(ValueError):
+        rk.refine_pose(*bad)
+    bad = list(args)
+    bad[1] = bad[1].cpu()
+    with pytest.raises(ValueError):
+        rk.refine_pose(*bad)
+
+
+def test_tracker_ipe_refines_in_one_launch(dev):
+    """The IPE tracker on the card refines every frame in one launch of
+    `refine_pose` (the init frame too), with neither `refine_frame` nor D, and
+    counts no Gauss-Newton iteration run from the host."""
+    import os
+
+    from pf_monocular_pose_estimator_tpu_torch.geometry import Camera
+    from pf_monocular_pose_estimator_tpu_torch.tracker import TargetState, make_tracker
+    from pf_monocular_pose_estimator_tpu_torch.tracker import step as step_mod
+    from pf_monocular_pose_estimator_tpu_torch.utils import TrackerConfig
+
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "golden_sequence.npz"))
+    cam = Camera.create(float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
+                        np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]),
+                        device=dev)
+    markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)
+    step = make_tracker(cam, torch.from_numpy(markers), torch.ones(5, dtype=torch.bool),
+                        TrackerConfig(use_particle_filter=False, n_particles=64,
+                                      min_blob_area=8.0), device=dev)
+    state = TargetState.create(64, prng.prng_key(0), device=dev)
+    before = (rk.refine_pose.launches, rk.refine_frame.launches, rk.gn_refine.launches,
+              step_mod.ipe_counts.gn_iterations)
+    for i in range(6):
+        state, res = step(state, torch.from_numpy(d["frames"][i]).to(dev), float(d["times"][i]))
+        assert bool(res.pose_updated), i
+    assert rk.refine_pose.launches - before[0] == 6
+    assert (rk.refine_frame.launches, rk.gn_refine.launches) == before[1:3]
+    assert step_mod.ipe_counts.gn_iterations == before[3]
+
+
 def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         dk.threshold_blur(torch.zeros(8, 8, device=dev), torch.zeros(11, device=dev), 5)

@@ -212,3 +212,94 @@ def test_refine_frame_plain_matches_chain_on_golden_frames(monkeypatch):
     assert len(seen) == 3  # the init frame refines through its own branch
     assert refine_kernel.refine_frame.calls - calls == 3
     assert refine_kernel.refine_frame.launches == launches
+
+
+def _pose_args(case, m, k=16):
+    """`refine_pose`'s arguments from problem p of `tests/refine_cases.py`:
+    the picked particle's pose and its greedy pairs (the base binding)."""
+    p = refine_cases.frame_case(case, m, k)
+    args = refine_cases.fused_args(p)
+    dfm = refine_kernel.frame_hypotheses(*args[:7], False)[0].to(torch.int32)
+    return p, (args[0], p["pre_gn"], args[2], p["marker_mask"], dfm, p["det"].xy)
+
+
+@pytest.mark.parametrize("m", [1, 3, 5, 9])
+@pytest.mark.parametrize("case", ["clean", "tie", "occluded"])
+def test_refine_pose_plain_is_gauss_newton_refine(case, m):
+    """The one-pose refine on the CPU (its plain twin) against the port's
+    `gauss_newton_refine` on the same pose and pairs, to the bit: the twin is
+    that function, whose arithmetic the card's kernel repeats.  One call, no
+    launch."""
+    p, args = _pose_args(case, m)
+    calls, launches = refine_kernel.refine_pose.calls, refine_kernel.refine_pose.launches
+    got = refine_kernel.refine_pose(*args, 25, 1e-4)
+    assert refine_kernel.refine_pose.calls == calls + 1
+    assert refine_kernel.refine_pose.launches == launches
+    dfm = args[4]
+    corr = torch.stack([torch.arange(m, dtype=torch.int32), dfm], -1)
+    want = refine.gauss_newton_refine(p["camera"], p["pre_gn"], p["markers_h"], p["det"].xy, corr,
+                                      (dfm >= 0) & p["marker_mask"], 25, 1e-4)
+    for g, w in zip(got, (want.pose, want.covariance, want.num_iterations)):
+        _same(g, w)
+    assert got.num_iterations.dtype == torch.int32 and got.num_iterations.shape == ()
+
+
+@pytest.mark.parametrize("m", [4, 5, 9])
+def test_refine_pose_plain_matches_jax_reference(m):
+    """The twin against the JAX package's `pf/refine.py::gauss_newton_refine`
+    on the same inputs, on the CPU, with three to eight live pairs (fewer
+    leave the pose underdetermined).  XLA and torch sum the normal equations
+    and the 3x3 products in other orders, so poses agree to 1e-5 and
+    covariances to test_single_pose_gn_matches_reference's 1e-2 (an
+    ill-conditioned 6x6 inverse moves by ~1e-3 under a one-ulp change of
+    its input), with the same iteration count."""
+    p, args = _pose_args("clean", m)
+    dfm = args[4].numpy()
+    corr = np.stack([np.arange(m, dtype=np.int32), dfm], -1)
+    want = ref_gn(RefCamera.create(**refine_cases.CAM), jnp.asarray(p["pre_gn"].numpy()),
+                  jnp.asarray(p["markers_h"].numpy()), jnp.asarray(p["det"].xy.numpy()),
+                  jnp.asarray(corr), jnp.asarray((dfm >= 0) & p["marker_mask"].numpy()), 25,
+                  1e-4)
+    got = refine_kernel.refine_pose(*args, 25, 1e-4)
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), rtol=0, atol=1e-5)
+    assert int(got.num_iterations) == int(want.num_iterations)
+    np.testing.assert_allclose(got.covariance.numpy(), np.asarray(want.covariance), rtol=1e-2,
+                               atol=1e-6)
+
+
+def test_ipe_tracker_with_and_without_pallas_gn(monkeypatch):
+    """The IPE golden frames (tests/test_torch_ipe.py's settings) through the
+    tracker with `use_pallas_gn` on, which refines through `refine_pose`, and
+    off, which runs `gauss_newton_refine` op by op: flags, `pose_updated`,
+    the track counter and the IPE counters equal; poses within
+    tests/test_torch_ipe.py's bars (0.05 mm, 0.1 deg).  On the CPU the twin
+    runs, so every refine counts its iterations as run from the host."""
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "golden_sequence.npz"))
+    cam = Camera.create(float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
+                        np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
+    markers = torch.from_numpy(np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1))
+    ipe = dict(use_particle_filter=False, n_particles=64, min_blob_area=8.0)
+    runs = {}
+    for pallas in (True, False):
+        step = make_tracker(cam, markers, torch.ones(5, dtype=torch.bool),
+                            TrackerConfig(use_pallas_gn=pallas, **ipe), device="cpu")
+        monkeypatch.setattr(port_step, "ipe_counts", port_step.IpeCounts())
+        calls = refine_kernel.refine_pose.calls
+        state = TargetState.create(64, prng_key(0), device="cpu")
+        out = []
+        for i in range(8):
+            state, res = step(state, torch.from_numpy(d["frames"][i]), float(d["times"][i]))
+            out.append((int(res.fail_flag), bool(res.pose_updated), res.pose.numpy()))
+        counts = port_step.ipe_counts
+        runs[pallas] = dict(out=out, it=int(state.it_since_initialized),
+                            counts={k: getattr(counts, k) for k in type(counts).__slots__},
+                            calls=refine_kernel.refine_pose.calls - calls)
+    on, off = runs[True], runs[False]
+    assert on["calls"] == 8 and off["calls"] == 0
+    assert on["it"] == off["it"] and on["counts"] == off["counts"]
+    assert on["counts"]["gn_iterations"] == 7 * 25
+    for (f1, u1, p), (f2, u2, q) in zip(on["out"], off["out"]):
+        assert f1 == f2 and u1 == u2
+        assert np.linalg.norm(p[:3, 3] - q[:3, 3]) < 5e-5
+        cos = np.clip((np.trace(p[:3, :3] @ q[:3, :3].T) - 1) / 2, -1, 1)
+        assert np.degrees(np.arccos(cos)) < 0.1
