@@ -132,7 +132,7 @@ def test_ego_replay_against_jax():
     with the observer's motion non-trivial (change_cam_pose ~8e-3 from the
     identity) and the state's observer fields within 1e-5 of the
     reference's at the end."""
-    d = np.load(GOLDEN)
+    d = dict(np.load(GOLDEN))
     args = (float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
             np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
     markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)

@@ -3,6 +3,7 @@
 `number_of_occlusions` / `number_of_false_detections` against the JAX
 package.  The draws and the injected detections are bit-identical."""
 
+import functools
 import os
 
 import jax
@@ -181,7 +182,7 @@ def faulted_setup():
     """Both trackers with one occlusion and two false detections, and the
     reference's `initialise` + Gauss-Newton as the init branch runs them,
     jitted alone and evaluated op by op (eager)."""
-    d = np.load(GOLDEN)
+    d = dict(np.load(GOLDEN))
     args = (float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
             np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
     markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)
@@ -210,9 +211,22 @@ def faulted_setup():
         return {name: tuple(np.asarray(v) for v in f(*a))
                 for name, f in (("jit", ref_init_jit), ("eager", ref_init))}
 
+    ref_step = ref_make_tracker(ref_cam, mh, mm, ref_cfg)
+
+    @functools.lru_cache(maxsize=None)
+    def frame0(seed):
+        """(state, result, reference_inits) of the reference tracker's frame
+        0 from `RefState.create(N, PRNGKey(seed))`: each seed's jitted and
+        op-by-op inits are evaluated once for the whole module."""
+        state = RefState.create(N, jax.random.PRNGKey(seed))
+        _, res = ref_step(state, jnp.asarray(d["frames"][0], jnp.float32),
+                          jnp.asarray(d["times"][0]))
+        return state, res, reference_inits(res.detections_xy, res.detections_mask, state)
+
     return dict(
         d=d,
-        ref_step=ref_make_tracker(ref_cam, mh, mm, ref_cfg),
+        ref_step=ref_step,
+        frame0=frame0,
         step=make_tracker(Camera.create(*args), torch.from_numpy(markers),
                           torch.ones(5, dtype=torch.bool), TrackerConfig(**FAULTS), device="cpu"),
         reference_inits=reference_inits,
@@ -244,18 +258,10 @@ def test_faulted_init_is_decided_by_rounding(faulted):
     constellations on bit-identical detections.  On seed 0 one lands within
     5 mm of the truth and the other locks onto the injected clones."""
     f, d = faulted, faulted["d"]
-    split = []
-    for seed in INIT_SEEDS:
-        state = RefState.create(N, jax.random.PRNGKey(seed))
-        _, res = f["ref_step"](state, jnp.asarray(d["frames"][0], jnp.float32),
-                               jnp.asarray(d["times"][0]))
-        refs = f["reference_inits"](res.detections_xy, res.detections_mask, state)
-        if not np.array_equal(refs["jit"][2], refs["eager"][2]):
-            split.append(seed)
-        if seed == 0:
-            errs = sorted(_pose_gap(refs[n][3], d["poses"][0])[0] for n in refs)
-            assert errs[0] < 5e-3 and errs[1] > 0.1, errs
-    assert 0 in split, split
+    _, _, refs = f["frame0"](0)
+    errs = sorted(_pose_gap(refs[n][3], d["poses"][0])[0] for n in refs)
+    assert errs[0] < 5e-3 and errs[1] > 0.1, errs
+    assert not np.array_equal(refs["jit"][2], refs["eager"][2]), refs["jit"][2]
 
 
 @pytest.mark.parametrize("seed", INIT_SEEDS)
@@ -266,11 +272,8 @@ def test_faulted_init_against_jax(seed, faulted):
     the flag must be those of the reference jitted or op by op (see
     test_faulted_init_is_decided_by_rounding), and the refined pose within
     0.05 mm and 0.1 deg of that evaluation's."""
-    f, d = faulted, faulted["d"]
-    ref_state = RefState.create(N, jax.random.PRNGKey(seed))
-    _, want = f["ref_step"](ref_state, jnp.asarray(d["frames"][0], jnp.float32),
-                            jnp.asarray(d["times"][0]))
-    refs = f["reference_inits"](want.detections_xy, want.detections_mask, ref_state)
+    f = faulted
+    ref_state, want, refs = f["frame0"](seed)
     # the reference tracker's own frame 0 is its jitted evaluation
     assert int(want.fail_flag) == int(refs["jit"][1])
     if bool(want.pose_updated):

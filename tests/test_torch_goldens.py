@@ -63,7 +63,7 @@ def test_realistic_first_frames_against_jax():
     flags and `pose_updated` equal, poses within tests/test_torch_tracker.py's
     bars (frame 0: 0.1 mm; every frame: 0.05 mm and 0.1 deg)."""
     smoke = _chip_smoke()
-    d = np.load(smoke.REALISTIC_GOLDEN)
+    d = dict(np.load(smoke.REALISTIC_GOLDEN))
     c = smoke.REALISTIC_CAMERA
     args = (c["fx"], c["fy"], c["cx"], c["cy"], np.asarray(c["dist"], np.float32), c["width"],
             c["height"])

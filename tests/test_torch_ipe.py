@@ -29,7 +29,7 @@ def test_ipe_replay_against_jax():
     tests/test_torch_tracker.py's bars (frame 0: 0.1 mm; every frame: 0.05
     mm and 0.1 deg).  The branch is the reference's: frame 0 initialises,
     every later frame tracks (flag 10) without re-initialising."""
-    d = np.load(GOLDEN)
+    d = dict(np.load(GOLDEN))
     args = (float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
             np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
     markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)

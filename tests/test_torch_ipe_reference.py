@@ -70,7 +70,7 @@ def pose_gap(p, q) -> tuple[float, float]:
 
 @pytest.fixture(scope="module")
 def sides():
-    d = np.load(GOLDEN)
+    d = dict(np.load(GOLDEN))
     args = (float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
             np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
     markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)

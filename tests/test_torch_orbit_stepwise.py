@@ -46,22 +46,27 @@ COUNTERS = ("it_since_initialized", "uncertainty", "degraded_frames", "coast_fra
 
 class _Reference:
     """The reference tracker over `bench.py`'s orbit, extended on demand:
-    `states[i]` is its state before frame i, `results[i]` frame i's."""
+    `states[i]` is its state before frame i, `results[i]` frame i's.  The
+    orbit is rendered only as far as a case replays it; a longer case
+    renders it anew and restarts the chain, so every state comes from the
+    frames it keeps."""
 
     def __init__(self):
         camera, markers = ref_default_camera(), ref_demo_markers()
-        seq = make_orbit_sequence(camera, markers, num_frames=FRAMES, fps=50.0)
-        self.frames, self.times = np.asarray(seq.frames), np.asarray(seq.times)
         self.ref_camera, self.ref_markers = camera, markers
         self.camera = convert.camera_from_reference(camera._asdict())
         self.markers = torch.from_numpy(np.asarray(markers))
         self.step = ref_make_tracker(camera, markers, jnp.ones(markers.shape[0], bool),
                                      RefConfig(**CONFIG))
-        self.states = [RefState.create(CONFIG["n_particles"], jax.random.PRNGKey(0))]
-        self.results = []
+        self.frames = self.times = ()
         self.gn = {}  # (iters, tol) -> the reference's vmapped Gauss-Newton
 
     def upto(self, n: int):
+        if n > len(self.frames):
+            seq = make_orbit_sequence(self.ref_camera, self.ref_markers, num_frames=n, fps=50.0)
+            self.frames, self.times = np.asarray(seq.frames), np.asarray(seq.times)
+            self.states = [RefState.create(CONFIG["n_particles"], jax.random.PRNGKey(0))]
+            self.results = []
         while len(self.results) < n:
             i = len(self.results)
             state, res = self.step(self.states[i], jnp.asarray(self.frames[i]),

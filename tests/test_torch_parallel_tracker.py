@@ -65,7 +65,7 @@ ONES5 = torch.ones(5, dtype=torch.bool)
 
 
 def _golden():
-    d = np.load(os.path.join(HERE, "golden", "golden_sequence.npz"))
+    d = dict(np.load(os.path.join(HERE, "golden", "golden_sequence.npz")))
     args = (float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
             np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
     markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)

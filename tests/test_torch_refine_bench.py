@@ -12,6 +12,7 @@ harness in a process of its own.)  The engagement metric
 from __future__ import annotations
 
 import importlib.util
+import json
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -28,6 +29,24 @@ from pf_monocular_pose_estimator_tpu_torch.pf import refine_kernel  # noqa: E402
 
 SIZE = dict(n_particles=2000, warmup_frames=8, max_frames=6)
 SEED = 2**31 + 77
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_traffic():
+    """The runs here share one cell and one seed, so they share its frames:
+    `make_traffic` renders the period once for the module."""
+    made = {}
+    real = bench_run.make_traffic
+
+    def make_once(mix, camera, markers_t, seed, device):
+        key = (json.dumps(mix, sort_keys=True), seed, str(device))
+        if key not in made:
+            made[key] = real(mix, camera, markers_t, seed, device)
+        return made[key]
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(bench_run, "make_traffic", make_once)
+        yield
 
 
 def run_small():

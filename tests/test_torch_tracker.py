@@ -36,7 +36,7 @@ CONFIG = dict(n_particles=N, min_blob_area=8.0, pf_max_retries=8)
 
 @pytest.fixture(scope="module")
 def golden():
-    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "golden_sequence.npz"))
+    d = dict(np.load(os.path.join(os.path.dirname(__file__), "golden", "golden_sequence.npz")))
     args = (float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
             np.asarray(d["dist"], np.float32), int(d["width"]), int(d["height"]))
     markers = np.concatenate([d["markers"], np.ones((5, 1), np.float32)], 1)
