@@ -404,15 +404,20 @@ def load_golden(device):
     return d, cam, markers
 
 
+def crop_offset(d):
+    """(x0, y0) of the 192x256 crop around the LEDs of golden frame 17."""
+    led = d["led_pixels"][17]
+    return (int(np.clip(round(led[:, 0].mean() - 128), 0, 752 - 256)),
+            int(np.clip(round(led[:, 1].mean() - 96), 0, 480 - 192)))
+
+
 def crop_inputs(d, device):
     """Kernel A's main-path input: a 192x256 crop around the LEDs of golden
     frame 17 and its parameters (ROI, threshold 240, areas 8-160, sigma 0.6)."""
     import torch
     from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
 
-    led = d["led_pixels"][17]
-    x0 = int(np.clip(round(led[:, 0].mean() - 128), 0, 752 - 256))
-    y0 = int(np.clip(round(led[:, 1].mean() - 96), 0, 480 - 192))
+    x0, y0 = crop_offset(d)
     crop = torch.from_numpy(d["frames"][17][y0:y0 + 192, x0:x0 + 256].astype(np.float32))
     prm = dk.make_params([6.0, 9.0, 240.0, 170.0], 240.0, 8.0, 160.0, 0.6, device)
     return crop.contiguous().to(device), prm
@@ -571,6 +576,47 @@ def check_kernels(device, d, cam, markers):
                                       3),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
     print(f"[kernels] detect_stats 192x256: labels, 10 maps, top-16 exact ({n_roots} roots)")
+
+    # the crop path's epilogue on A's outputs above: the detection bank, bit for
+    # bit its plain twin run op by op on the same card tensors, at the tracker's
+    # options (split, dip test, active markers; tolerances 0.7, a crop offset)
+    from pf_monocular_pose_estimator_tpu_torch.utils import BlobParams
+
+    params_e = BlobParams(min_blob_area=8.0)
+    prm_e = torch.cat([prm_c, torch.tensor([0.7, 0.7, *crop_offset(d)], dtype=torch.float32,
+                                           device=device)])
+    epilogue = lambda t=top: dk.detect_epilogue(lab, maps, t, crop, prm_e, 5, params_e, cam)
+    got, want = epilogue(), dk.detect_epilogue_plain(lab, maps, top, crop, prm_e, 5, params_e,
+                                                     cam)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        bits = (lambda t: t.view(torch.int32)) if g.dtype == torch.float32 else (lambda t: t)
+        assert torch.equal(bits(g), bits(w)), f"detect_epilogue: output {i} differs from plain"
+    n_det = int(got[2].sum())
+    assert n_det == 5, f"detect_epilogue: {n_det} detections, not the five LEDs"
+    # per slot: A's ten maps, the label, the top-k index and up to nine crop
+    # samples read, five floats and two flags written; the statistics, filters
+    # and split (~170 operations), 8 undistortion rounds (~20 each) and the
+    # compaction's 2K compares for each of 2K keys
+    b_ms, b_by = bound(16 * (4 * (dk.N_MAPS + 1) + 8 + 4 * 9 + 4 * 5 + 2) + 4 * (16 + 9),
+                       16 * (170 + 8 * 20) + (2 * 16) ** 2)
+    rows.append(dict(name="detect_epilogue", route="cuda",
+                     source="pf_monocular_pose_estimator_tpu_torch/csrc/detect.cu",
+                     replaces=f"{REF}/ops/blob.py::_detect_blobs_fused after the Pallas call, "
+                              "find_leds' undistortion",
+                     max_abs_err=0.0, ms=time_ms(epilogue), device_ms=device_time_ms(epilogue),
+                     plain_ms=time_ms(lambda: dk.detect_epilogue_plain(
+                         lab, maps, top, crop, prm_e, 5, params_e, cam), 3),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    wide = {}
+    for k in (64, 128):  # A's wide path above 64
+        top_k = dk.detect_stats(crop, prm_c, 5, True, 12, k)[2]
+        wide[k] = device_time_ms(lambda: epilogue(top_k))
+    r = rows[-1]
+    print(f"[kernels] detect_epilogue 192x256, K = 16: exact against the twin, {n_det} "
+          f"detections; event {r['ms'] * 1e3:.2f} us, graph {r['device_ms'] * 1e3:.2f} us a call "
+          f"(K = 64: {wide[64] * 1e3:.2f}, K = 128: {wide[128] * 1e3:.2f}), twin "
+          f"{r['plain_ms'] * 1e3:.1f} us")
 
     # B: fused propagate + weight at N = 100,000, M = 5, K = 16
     n = N_PARTICLES
@@ -2061,6 +2107,14 @@ def checkpoint_resume(device, tag, run_to, resume, like):
     return poses_a.shape[0]
 
 
+def epilogue_per_crop(tag, run):
+    """Every crop-path detection of a counted replay launched the epilogue
+    once after kernel A (the full frame launches neither)."""
+    n_a, n_e = run.launches["detect_stats"], run.launches["detect_epilogue"]
+    assert n_e == n_a > 0, f"{tag}: {n_e} epilogue launches for {n_a} of kernel A"
+    print(f"[{tag}] detect_epilogue: {n_e} launches, one a crop-path detection")
+
+
 def multi_target_phases(device, card, counted, main_args) -> dict:
     """Phases 15-18: the two-UAV golden through the multi-tracker (4,000 and
     100,000 particles a target, both forms), the targets x particles tracker
@@ -2104,11 +2158,14 @@ def multi_target_phases(device, card, counted, main_args) -> dict:
     rows_small = multi_bars("multi-4k", small, gt, 0.95, max_ate=0.02)
     multi = counted("multi", multi_replay, device, d, cam, markers_t, masks_t, N_PARTICLES)
     launched("multi", multi, pf_kernels)
+    for tag, run in (("multi-4k", small), ("multi", multi)):
+        epilogue_per_crop(tag, run)
     rows = multi_bars("multi", multi, gt, 0.95, max_ate=0.02)
     warm = multi_replay(device, d, cam, markers_t, masks_t, N_PARTICLES)
     batched = counted("multi-batched", multi_replay, device, d, cam, markers_t, masks_t,
                       N_PARTICLES, sequential=False)
     assert np.array_equal(batched.flags, multi.flags), "multi: the two forms' flags differ"
+    epilogue_per_crop("multi-batched", batched)
     same = bool(np.array_equal(batched.poses, multi.poses))
     for tag, run in (("sequential", warm), ("batched", batched)):
         print(f"[multi] {card}: {tag} warm replay {run.frames_per_second:.2f} frames/s at "
@@ -2572,6 +2629,7 @@ def main() -> int:
     # launch counters: (wrapper, attribute) per kernel row
     counters = {"threshold_blur": (dk.threshold_blur, "launches"),
                 "detect_stats": (dk.detect_stats, "launches"),
+                "detect_epilogue": (dk.detect_epilogue, "launches"),
                 "pf_step": (sk.pf_step, "launches"), "pf_step_pairs": (sk.pf_step, "pairs_launches"),
                 "pf_weight": (wk.weight, "launches"),
                 "resample_gather": (sk.resample_gather, "launches"),
@@ -2645,6 +2703,7 @@ def main() -> int:
     main_run = counted_replay("replay")
     for name in ("threshold_blur", "detect_stats", "pf_step", "refine_frame"):
         assert main_run.launches[name] > 0, f"the replay never launched {name}"
+    epilogue_per_crop("replay", main_run)
     if main_run.launches["resample_gather"] == 0:
         print("[replay] no frame resampled (the ESS gate never fired)")
     main_warm = warm_replay("timing")
@@ -2691,6 +2750,7 @@ def main() -> int:
     assert got["resample_gather"] == 0, "sharded: launched the unsharded gather"
     for name in ("threshold_blur", "detect_stats", "refine_frame"):
         assert got[name] > 0, f"the sharded replay never launched {name}"
+    epilogue_per_crop("sharded", sharded_run)
     print(f"[sharded] pf_step {got['pf_step']} launches (main path "
           f"{main_run.launches['pf_step']} x {MESH_SHARDS} shards), ring_gather "
           f"{got['ring_gather']} (main path's resample_gather "

@@ -77,6 +77,25 @@
 // integers in any order; built with --fmad=false, so the blurred map,
 // labels, counts, moment sums, bbox maps and the top-k equal the plain
 // PyTorch version bit for bit.
+//
+// The crop path's epilogue, `detect_epilogue_kernel`, turns A's label map,
+// statistics maps and top-k into the finished detection bank: per top-k
+// slot the root test and area, the centroid, variances and bounding box,
+// the shape filters, the merged-blob split with its dip samples of the
+// crop, then the stable compaction of the 2K keys to K slots, the crop
+// offset, 8 fixed-point undistortion iterations and the final masking.  It
+// replaces no TPU kernel: the reference leaves this tail to XLA
+// (pf_monocular_pose_estimator_tpu/ops/blob.py::_detect_blobs_fused,
+// _split_and_compact, find_leds), and the port ran it as ~500 PyTorch ops.
+// What bounds it: latency -- K <= 128 slots of a few hundred dependent
+// flops and 9 image samples, then one compaction.  One block of 2K threads
+// does it all from registers and shared memory: a thread a slot, then a
+// thread a compaction key whose rank (keys below it, plus equal keys at a
+// lower index: torch.sort's stable order) is its output slot.  Each value
+// is computed as PyTorch computes it on the card, op by op (IEEE `/` and
+// `sqrtf`, `rintf` for torch.round, NaN through torch.minimum and clamp,
+// float32 scalars, left to right), so the bank equals the plain version's
+// bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1140,6 +1159,153 @@ cudaError_t launch_wide(const float* blurred, const float* prm, int h, int w, in
   return cudaGetLastError();
 }
 
+// ---- The crop path's epilogue (see the head of this file) ----
+
+constexpr int kEpiThreads = 2 * kWideTopk;   // one thread a compaction key
+constexpr long long kNoKey = 2147483647LL;   // the compaction's key of an empty entry
+constexpr float kPi = 3.14159265358979323846f;
+// detect_epilogue_kernel's flags
+constexpr int kSplitMerged = 1, kSplitDip = 2, kActiveMarkers = 4;
+
+// torch.minimum and torch.clamp(min=) on the card: a NaN operand comes out
+__device__ __forceinline__ float torch_min(float a, float b) {
+  return a != a ? a : b != b ? b : fminf(a, b);
+}
+__device__ __forceinline__ float torch_clamp_min(float v, float lo) {
+  return v != v ? v : fmaxf(v, lo);
+}
+
+// The crop's value at the pixel nearest (x, y) (torch.round, clamped into
+// the crop), inverted for passive markers.
+__device__ __forceinline__ float crop_sample(const float* img, int h, int w, bool active, float x,
+                                             float y) {
+  long long xi = (long long)rintf(x), yi = (long long)rintf(y);
+  xi = xi < 0 ? 0 : xi > w - 1 ? w - 1 : xi;
+  yi = yi < 0 ? 0 : yi > h - 1 ? h - 1 : yi;
+  const float v = img[yi * w + xi];
+  return active ? v : 255.0f - v;
+}
+
+// prm: [x0, y0, roi_w, roi_h, threshold, min_area, max_area, taps...,
+// wh_tol, circ_tol, offset_x, offset_y]; out: xy (k, 2), xy_distorted
+// (k, 2), area (k); out_mask: mask (k), then k false flags.
+__global__ void __launch_bounds__(kEpiThreads)
+    detect_epilogue_kernel(const int* __restrict__ lab, const float* __restrict__ maps,
+                           const long long* __restrict__ top, const float* __restrict__ img,
+                           int h, int w, int k, const float* __restrict__ prm, int ntaps,
+                           int flags, float split_max_factor, float split_min_elongation,
+                           float dip_ratio, const float* __restrict__ fx,
+                           const float* __restrict__ fy, const float* __restrict__ ccx,
+                           const float* __restrict__ ccy, const float* __restrict__ dist,
+                           float* __restrict__ out, bool* __restrict__ out_mask) {
+  __shared__ long long keys[kEpiThreads];
+  __shared__ float ent_x[kEpiThreads], ent_y[kEpiThreads], ent_area[kEpiThreads];
+  __shared__ bool ent_valid[kEpiThreads];
+  const int t = threadIdx.x;
+  const bool split = flags & kSplitMerged;
+  const int n = split ? 2 * k : k;
+  const float min_a = prm[5], max_a = prm[6];
+  const float* tail = prm + 7 + ntaps;  // wh_tol, circ_tol, offset
+  if (t < k) {
+    const long long hw = (long long)h * w, idx = top[t];
+    const float cnt = maps[idx];
+    const float area = lab[idx] == (int)(idx + 1) ? cnt : 0.0f;
+    const long long comp = area > 0.0f ? idx + 1 : 0;
+    const float cntv = torch_clamp_min(cnt, 1e-9f);
+    const float mdx = maps[hw + idx] / cntv, mdy = maps[2 * hw + idx] / cntv;
+    const float cx = (float)(idx % w) + mdx, cy = (float)(idx / w) + mdy;
+    const float vxx = maps[7 * hw + idx] / cntv - mdx * mdx;
+    const float vyy = maps[8 * hw + idx] / cntv - mdy * mdy;
+    const float vxy = maps[9 * hw + idx] / cntv - mdx * mdy;
+    const float bb_w = maps[4 * hw + idx] - maps[3 * hw + idx] + 1.0f;
+    const float bb_h = maps[6 * hw + idx] - maps[5 * hw + idx] + 1.0f;
+    // the shape filters; (b / 2) ** 2 is b / 2 times itself on the card
+    const float ratio = torch_min(bb_w / bb_h, bb_h / bb_w);
+    const float rw = bb_w / 2.0f, rh = bb_h / 2.0f;
+    const float circ_w = fabsf(1.0f - area / (rw * rw * kPi));
+    const float circ_h = fabsf(1.0f - area / (rh * rh * kPi));
+    const bool valid = comp > 0 && area >= min_a && area <= max_a &&
+                       fabsf(1.0f - ratio) <= tail[0] && circ_w <= tail[1] && circ_h <= tail[1];
+    if (!split) {
+      keys[t] = valid ? comp : kNoKey;
+      ent_x[t] = cx;
+      ent_y[t] = cy;
+      ent_area[t] = area;
+      ent_valid[t] = valid;
+    } else {
+      // the merged-blob split: two detections off the centroid along the
+      // major axis
+      const float tr = vxx + vyy, diff = vxx - vyy;
+      const float disc = sqrtf(torch_clamp_min(diff * diff + 4.0f * vxy * vxy, 0.0f));
+      const float lam_max = 0.5f * (tr + disc);
+      const float lam_min = torch_clamp_min(0.5f * (tr - disc), 1e-6f);
+      const float half = area * 0.5f;
+      bool ok = comp > 0 && area > max_a && area <= split_max_factor * max_a &&
+                lam_max / lam_min >= split_min_elongation && half >= min_a && half <= max_a;
+      const bool degen = fabsf(vxy) <= 1e-9f;
+      const float ux = degen ? (diff >= 0.0f ? 1.0f : 0.0f) : vxy;
+      const float uy = degen ? (diff >= 0.0f ? 0.0f : 1.0f) : lam_max - vxx;
+      const float norm = sqrtf(torch_clamp_min(ux * ux + uy * uy, 1e-12f));
+      const float off = sqrtf(torch_clamp_min(lam_max - lam_min, 0.0f));
+      const float ox = ux / norm * off, oy = uy / norm * off;
+      if (ok && (flags & kSplitDip)) {  // a split needs a dip along the axis or a thin waist
+        const bool active = flags & kActiveMarkers;
+        auto at = [&](float x, float y) { return crop_sample(img, h, w, active, x, y); };
+        const float i_1 = at(cx + ox, cy + oy), i_2 = at(cx - ox, cy - oy);
+        const float lobes = torch_min(i_1, i_2);
+        const bool dip_axis = at(cx, cy) <= dip_ratio * lobes;
+        const float perp_k = sqrtf(torch_clamp_min(lam_min, 1.0f)) * 0.8f + 0.5f;
+        const float px = -(uy / norm) * perp_k, py = (ux / norm) * perp_k;
+        auto perp_min = [&](float xc, float yc) {
+          return torch_min(at(xc + px, yc + py), at(xc - px, yc - py));
+        };
+        const float w_c = perp_min(cx, cy);
+        const float w_lobe = torch_min(perp_min(cx + ox, cy + oy), perp_min(cx - ox, cy - oy));
+        ok = dip_axis || (w_lobe >= 0.5f * lobes && w_c <= dip_ratio * w_lobe);
+      }
+      const bool p_valid = valid || ok;
+      keys[t] = p_valid ? comp * 2 : kNoKey;
+      ent_x[t] = ok ? cx + ox : cx;
+      ent_y[t] = ok ? cy + oy : cy;
+      ent_area[t] = ok ? half : area;
+      ent_valid[t] = p_valid;
+      keys[k + t] = ok ? comp * 2 + 1 : kNoKey;
+      ent_x[k + t] = cx - ox;
+      ent_y[k + t] = cy - oy;
+      ent_area[k + t] = half;
+      ent_valid[k + t] = ok;
+    }
+  }
+  __syncthreads();
+  if (t >= n) return;
+  const long long key = keys[t];
+  int rank = 0;
+  for (int j = 0; j < n; ++j) rank += keys[j] < key || (keys[j] == key && j < t);
+  if (rank >= k) return;
+  // the crop offset, then OpenCV's fixed-point undistortion
+  const float xd = ent_x[t] + tail[2], yd = ent_y[t] + tail[3];
+  const float k1 = dist[0], k2 = dist[1], p1 = dist[2], p2 = dist[3], k3 = dist[4];
+  const float x0 = (xd - *ccx) / *fx, y0 = (yd - *ccy) / *fy;
+  float x = x0, y = y0;
+  for (int it = 0; it < 8; ++it) {
+    const float r2 = x * x + y * y;
+    const float radial = 1.0f + r2 * (k1 + r2 * (k2 + r2 * k3));
+    const float dx = 2.0f * p1 * x * y + p2 * (r2 + 2.0f * x * x);
+    const float dy = p1 * (r2 + 2.0f * y * y) + 2.0f * p2 * x * y;
+    const float safe = fabsf(radial) < 1e-12f ? 1e-12f : radial;
+    x = (x0 - dx) / safe;
+    y = (y0 - dy) / safe;
+  }
+  const bool m = ent_valid[t];
+  out[2 * rank] = m ? x * *fx + *ccx : 0.0f;
+  out[2 * rank + 1] = m ? y * *fy + *ccy : 0.0f;
+  out[2 * k + 2 * rank] = m ? xd : 0.0f;
+  out[2 * k + 2 * rank + 1] = m ? yd : 0.0f;
+  out[4 * k + rank] = m ? ent_area[t] : 0.0f;
+  out_mask[rank] = m;
+  out_mask[k + rank] = false;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1186,6 +1352,24 @@ int pfmpe_detect_stats(const float* img, const float* prm, int ntaps, int h, int
   if (e != cudaSuccess) return (int)e;
   topk_merge_kernel<kMaxTopk><<<1, kMergeThreads, 0, st>>>(
       tile_keys, n_tiles<StatsShape>(h, w) * topk, topk, topk_out);
+  return (int)cudaGetLastError();
+}
+
+// The crop path's epilogue (detect_epilogue_kernel) after pfmpe_detect_stats
+// on the same stream: lab (h, w), maps (10, h, w), top (k,) int64, img the
+// float crop (h, w), prm 11 + ntaps floats, fx, fy, cx, cy one float each
+// and dist 5; out 5k floats, mask 2k bools.  1 <= k <= min(128, h * w).
+int pfmpe_detect_epilogue(const int* lab, const float* maps, const long long* top,
+                          const float* img, int h, int w, int k, const float* prm, int ntaps,
+                          int flags, float split_max_factor, float split_min_elongation,
+                          float split_dip_ratio, const float* fx, const float* fy,
+                          const float* cx, const float* cy, const float* dist, float* out,
+                          bool* mask, void* stream) {
+  if (k < 1 || k > kWideTopk || (long long)h * w < k || ntaps < 1 || ntaps > kMaxTaps)
+    return (int)cudaErrorInvalidValue;
+  detect_epilogue_kernel<<<1, 32 * ((2 * k + 31) / 32), 0, (cudaStream_t)stream>>>(
+      lab, maps, top, img, h, w, k, prm, ntaps, flags, split_max_factor, split_min_elongation,
+      split_dip_ratio, fx, fy, cx, cy, dist, out, mask);
   return (int)cudaGetLastError();
 }
 

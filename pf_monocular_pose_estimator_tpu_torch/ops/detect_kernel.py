@@ -9,16 +9,22 @@ exact in-range-lifted component count, lowest flat index on ties.
 
 Both wrappers take one float32 parameter vector on the image's device:
   [x0, y0, roi_w, roi_h, threshold, min_area, max_area, taps...]
-For a CPU tensor they run the plain version; for a CUDA tensor they launch
-the kernel or raise.
+The crop path's epilogue, `detect_epilogue`, takes A's outputs to the
+finished detection bank in one launch (csrc/detect.cu); its vector goes on
+with [wh_tol, circ_tol, offset_x, offset_y].  For a CPU tensor each wrapper
+runs the plain version; for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from ..geometry.camera import Camera, undistort_pixels
 from ..utils import cuda_lib
+from ..utils.config import BlobParams
 from ..utils.sync import upload
 
 N_MAPS = 10  # cnt, sx, sy, xmin, xmax, ymin, ymax, sxx, syy, sxy
@@ -28,6 +34,8 @@ N_MAPS = 10  # cnt, sx, sy, xmin, xmax, ymin, ymax, sxx, syy, sxy
 # path (label and bbox rounds, more launches than the default's four).
 MAX_SWEEPS = 32
 MAX_TOPK = 128
+N_EPILOGUE = 4  # the epilogue's values after the taps: wh_tol, circ_tol, offset x and y
+_IMAX = 2**31 - 1  # the compaction's key of an empty entry
 
 
 def check_card_shape(sweeps: int, topk: int, pixels: int) -> None:
@@ -219,3 +227,195 @@ def detect_stats(img: torch.Tensor, prm: torch.Tensor, ntaps: int, active: bool 
 
 detect_stats.launches = 0
 detect_stats.pixels = 0  # h * w of every launch: kernel A's bytes scale with it
+
+
+def shape_filter(area, bb_w, bb_h, comp_ids, min_area, max_area, wh_tol, circ_tol):
+    """Components kept by area, width-to-height ratio and circularity."""
+    ratio = torch.minimum(bb_w / bb_h, bb_h / bb_w)
+    circ_w = torch.abs(1.0 - area / (math.pi * (bb_w / 2.0) ** 2))
+    circ_h = torch.abs(1.0 - area / (math.pi * (bb_h / 2.0) ** 2))
+    return (
+        (comp_ids > 0)
+        & (area >= min_area)
+        & (area <= max_area)
+        & (torch.abs(1.0 - ratio) <= wh_tol)
+        & (circ_w <= circ_tol)
+        & (circ_h <= circ_tol)
+    )
+
+
+def _argsort_stable(x: torch.Tensor) -> torch.Tensor:
+    return torch.sort(x, stable=True).indices
+
+
+def split_and_compact(params: BlobParams, comp_ids, cx, cy, area, valid, var_xx, var_yy,
+                      var_xy, min_area, max_area, img=None):
+    """Split oversized elongated components into two detections, then
+    compact valid detections to the front in component-id order:
+    (xy (K, 2) distorted, mask (K,), area (K,) zero where masked)."""
+    dev = cx.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if not params.split_merged:
+        perm = _argsort_stable(torch.where(valid, comp_ids, _IMAX))
+        xy_d = torch.stack([cx, cy], dim=-1)[perm]
+        mask = valid[perm]
+        return xy_d, mask, torch.where(mask, area[perm], zero)
+
+    tr = var_xx + var_yy
+    diff = var_xx - var_yy
+    disc = torch.sqrt(torch.clamp(diff * diff + 4.0 * var_xy * var_xy, min=0.0))
+    lam_max = 0.5 * (tr + disc)
+    lam_min = torch.clamp(0.5 * (tr - disc), min=1e-6)
+    half = area * 0.5
+    split_ok = (
+        (comp_ids > 0)
+        & (area > max_area)
+        & (area <= params.split_max_factor * max_area)
+        & (lam_max / lam_min >= params.split_min_elongation)
+        & (half >= min_area)
+        & (half <= max_area)
+    )
+    degen = torch.abs(var_xy) <= 1e-9
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    ux = torch.where(degen, torch.where(diff >= 0, one, zero), var_xy)
+    uy = torch.where(degen, torch.where(diff >= 0, zero, one), lam_max - var_xx)
+    norm = torch.sqrt(torch.clamp(ux * ux + uy * uy, min=1e-12))
+    off = torch.sqrt(torch.clamp(lam_max - lam_min, min=0.0))
+    ox = ux / norm * off
+    oy = uy / norm * off
+
+    if img is not None and params.split_dip_ratio < 1e6:
+        h_i, w_i = img.shape
+        sample_img = img if params.active_markers else 255.0 - img
+
+        def _sample(x, y):
+            xi = torch.clamp(torch.round(x).long(), 0, w_i - 1)
+            yi = torch.clamp(torch.round(y).long(), 0, h_i - 1)
+            return sample_img[yi, xi]
+
+        i_c = _sample(cx, cy)
+        i_1 = _sample(cx + ox, cy + oy)
+        i_2 = _sample(cx - ox, cy - oy)
+        ratio = params.split_dip_ratio
+        dip_axis = i_c <= ratio * torch.minimum(i_1, i_2)
+        perp_k = torch.sqrt(torch.clamp(lam_min, min=1.0)) * 0.8 + 0.5
+        px_ = -(uy / norm) * perp_k
+        py_ = (ux / norm) * perp_k
+
+        def _perp_min(xc, yc):
+            return torch.minimum(_sample(xc + px_, yc + py_), _sample(xc - px_, yc - py_))
+
+        w_c = _perp_min(cx, cy)
+        w_lobe = torch.minimum(_perp_min(cx + ox, cy + oy), _perp_min(cx - ox, cy - oy))
+        lobes_wide = w_lobe >= 0.5 * torch.minimum(i_1, i_2)
+        thin_waist = w_c <= ratio * w_lobe
+        split_ok = split_ok & (dip_axis | (lobes_wide & thin_waist))
+
+    p_valid = valid | split_ok
+    p_x = torch.where(split_ok, cx + ox, cx)
+    p_y = torch.where(split_ok, cy + oy, cy)
+    p_area = torch.where(split_ok, half, area)
+    keys = torch.cat(
+        [torch.where(p_valid, comp_ids * 2, _IMAX), torch.where(split_ok, comp_ids * 2 + 1, _IMAX)]
+    )
+    xs_all = torch.cat([p_x, cx - ox])
+    ys_all = torch.cat([p_y, cy - oy])
+    areas_all = torch.cat([p_area, half])
+    valid_all = torch.cat([p_valid, split_ok])
+    perm = _argsort_stable(keys)[: comp_ids.shape[0]]
+    xy_d = torch.stack([xs_all[perm], ys_all[perm]], dim=-1)
+    mask = valid_all[perm]
+    return xy_d, mask, torch.where(mask, areas_all[perm], zero)
+
+
+def finish_bank(camera: Camera, xy_d, mask, area):
+    """Undistort the compacted detections and zero every masked slot:
+    (xy, xy_distorted, mask, area, falses), falses a (K,) bool of False."""
+    xy_u = undistort_pixels(camera, xy_d)
+    zero = torch.zeros((), dtype=torch.float32, device=xy_d.device)
+    return (torch.where(mask[:, None], xy_u, zero), torch.where(mask[:, None], xy_d, zero), mask,
+            torch.where(mask, area, zero), torch.zeros_like(mask))
+
+
+def detect_epilogue_plain(lab, maps, top, img, prm, ntaps: int, params: BlobParams,
+                          camera: Camera):
+    """Plain twin of `detect_epilogue`, op by op: the root test and the
+    statistics at the top-k roots, the shape filters, the splitter and the
+    compaction, the crop offset, undistortion and the masking."""
+    h, w = img.shape
+    dev = img.device
+    min_area, max_area = prm[5], prm[6]
+    wh_tol, circ_tol = prm[7 + ntaps], prm[8 + ntaps]
+    offset = prm[9 + ntaps:11 + ntaps]
+    cnt, sx, sy, xmin, xmax, ymin, ymax, sxx, syy, sxy = (m.reshape(-1) for m in maps)
+    flat = torch.arange(1, h * w + 1, dtype=torch.int32, device=dev)
+    area_map = torch.where(lab.reshape(-1) == flat, cnt, torch.zeros((), device=dev))
+    valid0 = area_map[top] > 0
+    comp_ids = torch.where(valid0, top + 1, torch.zeros_like(top))
+
+    cntv = torch.clamp(cnt[top], min=1e-9)
+    root_x = (top % w).float()
+    root_y = (top // w).float()
+    mean_dx = sx[top] / cntv
+    mean_dy = sy[top] / cntv
+    cx = root_x + mean_dx
+    cy = root_y + mean_dy
+    area = area_map[top]
+    var_xx = sxx[top] / cntv - mean_dx * mean_dx
+    var_yy = syy[top] / cntv - mean_dy * mean_dy
+    var_xy = sxy[top] / cntv - mean_dx * mean_dy
+    bb_w = xmax[top] - xmin[top] + 1.0
+    bb_h = ymax[top] - ymin[top] + 1.0
+    valid = shape_filter(area, bb_w, bb_h, comp_ids, min_area, max_area, wh_tol, circ_tol)
+    xy_d, mask, area_s = split_and_compact(params, comp_ids, cx, cy, area, valid, var_xx, var_yy,
+                                           var_xy, min_area, max_area, img=img)
+    return finish_bank(camera, xy_d + offset[None, :], mask, area_s)
+
+
+def detect_epilogue(lab, maps, top, img, prm, ntaps: int, params: BlobParams, camera: Camera):
+    """Kernel A's outputs on a crop -> the finished detection bank, in one
+    launch of `detect_epilogue_kernel` (csrc/detect.cu) on the stream A ran
+    on.  lab (H, W) int32, maps (10, H, W), top (K,) int64 as `detect_stats`
+    returned them for `img`, and not checked again; img the float32 crop;
+    prm A's vector and the epilogue's four values (7 + ntaps + N_EPILOGUE);
+    the camera's intrinsics and distortion on the same device.  Returns (xy
+    (K, 2) undistorted, xy_distorted (K, 2), mask (K,) bool, area (K,),
+    falses (K,) bool), zero where the mask is false.  CPU tensors take the
+    plain twin, CUDA tensors the kernel (tensors on both raise).  `.calls`
+    counts every call, `.launches` the kernel's."""
+    detect_epilogue.calls += 1
+    cam = (camera.fx, camera.fy, camera.cx, camera.cy, camera.dist)
+    given = (img, prm) + cam
+    h, w = img.shape
+    if any(t.dtype != torch.float32 for t in given):
+        raise ValueError("detect_epilogue: the crop, the params and the camera must be float32")
+    if prm.numel() != 7 + ntaps + N_EPILOGUE or camera.dist.numel() != 5:
+        raise ValueError(f"detect_epilogue: params must hold 7 + ntaps + {N_EPILOGUE} values, "
+                         "the distortion 5")
+    if img.device.type == "cpu":
+        if any(t.device != img.device for t in given):
+            raise ValueError("detect_epilogue: all tensors must share a device")
+        return detect_epilogue_plain(lab, maps, top, img, prm, ntaps, params, camera)
+    k = top.numel()
+    if not 1 <= k <= min(MAX_TOPK, h * w):
+        raise ValueError(f"detect_epilogue: the kernel takes 1 <= K <= min({MAX_TOPK}, pixels) "
+                         f"(got K = {k}, {h * w} pixels)")
+    cuda_lib.require_cuda("detect_epilogue", *given)
+    lib = cuda_lib.library()
+    out = torch.empty(5 * k, dtype=torch.float32, device=img.device)
+    flags = torch.empty(2 * k, dtype=torch.bool, device=img.device)
+    mode = ((1 if params.split_merged else 0) | (2 if params.split_dip_ratio < 1e6 else 0)
+            | (4 if params.active_markers else 0))
+    code = lib.pfmpe_detect_epilogue(
+        lab.data_ptr(), maps.data_ptr(), top.data_ptr(), img.data_ptr(), h, w, k, prm.data_ptr(),
+        ntaps, mode, float(params.split_max_factor), float(params.split_min_elongation),
+        float(params.split_dip_ratio), *(t.data_ptr() for t in cam), out.data_ptr(),
+        flags.data_ptr(), cuda_lib.stream_ptr(img))
+    detect_epilogue.launches += 1
+    cuda_lib.check(code, "pfmpe_detect_epilogue")
+    return (out[:2 * k].view(k, 2), out[2 * k:4 * k].view(k, 2), flags[:k], out[4 * k:],
+            flags[k:])
+
+
+detect_epilogue.launches = 0
+detect_epilogue.calls = 0

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "pfmpe_threshold_blur": (_P, _P, _I, _I, _I, _I, _P, _P),
     "pfmpe_detect_stats": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "pfmpe_detect_stats_scratch": (_I, _I, _I, _I),
+    "pfmpe_detect_epilogue": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P,
+                              _P, _P, _P, _P),
     "pfmpe_pf_step": (_P, _P, _I, _I, _I, _U, _U, _U, _U, _I, _I, _P, _P, _P, _P, _P),
     "pfmpe_pf_weight": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "pfmpe_resample_gather": (_P, _P, _I, _P, _P),

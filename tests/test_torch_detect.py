@@ -94,21 +94,28 @@ def test_detect_stats_exact_vs_pallas(golden, case):
 
 
 def test_fused_crop_detections_match_pallas(golden):
-    """The crop path's detections (kernel + shape filters + splitter)
-    against the reference's `_detect_blobs_fused` in interpret mode."""
+    """The crop path's detections (kernel A + `detect_epilogue`: shape
+    filters, splitter, compaction) against the reference's
+    `_detect_blobs_fused` in interpret mode; the epilogue zeroes the slots
+    the mask drops."""
     crop = _crop(golden, 23)
     roi = np.float32([4.0, 6.0, 244.0, 176.0])
     params = BlobParams(min_blob_area=8.0)
     ref_params = RefBlobParams(min_blob_area=8.0)
     want = _detect_blobs_fused(jnp.asarray(crop), jnp.asarray(roi), ref_params, jnp.float32(8.0),
                                jnp.float32(160.0), interpret=True)
-    f = lambda v: torch.tensor(v, dtype=torch.float32)
-    got = blob._detect_blobs_fused(torch.from_numpy(crop), torch.from_numpy(roi), params, f(8.0),
-                                   f(160.0), f(240.0), f(0.7), f(0.7))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0, atol=1e-4)
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
-    assert int(got[1].sum()) == 5
+    want = [np.asarray(v) for v in want]
+    img = torch.from_numpy(crop)
+    prm = torch.cat([dk.make_params(roi, 240.0, 8.0, 160.0, 0.6, "cpu"),
+                     torch.tensor([0.7, 0.7, 0.0, 0.0])])
+    lab, maps, top = dk.detect_stats(img, prm[:12], 5, True, 12, 16)
+    _, xy_d, mask, area, falses = dk.detect_epilogue(lab, maps, top, img, prm, 5, params,
+                                                     _camera(golden))
+    np.testing.assert_array_equal(mask.numpy(), want[1])
+    np.testing.assert_allclose(xy_d.numpy(), np.where(want[1][:, None], want[0], 0.0), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_array_equal(area.numpy(), want[2])
+    assert int(mask.sum()) == 5 and not falses.any()
 
 
 def _camera(d):

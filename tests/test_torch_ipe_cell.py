@@ -95,7 +95,7 @@ if __name__ != "__main__":
         assert cell["workload"]["traffic"] == "orbit"
         assert cell["config"]["entry"] == "make_tracker"
         assert cell["config"]["tracker"]["use_particle_filter"] is False
-        assert [m["name"] for m in cell["per_layer"]] == list(METRICS)
+        assert [m["name"] for m in cell["per_layer"]] == [*METRICS, "detect.epilogue_share"]
         assert [m["name"] for m in cell["end_to_end"]] == ["frames_per_s", "pose_est_ms_p95",
                                                            "setup_s"]
 

@@ -8,12 +8,14 @@ machine they count as skipped.  On the GPU machine:
 (chip_smoke.py runs the same checks at the main path's full shapes, and
 the SHAPE_* grid below with this file's generators in its [shapes] phase.)"""
 
+import epilogue_cases
 import numpy as np
 import pytest
 import refine_cases
 import torch
 
 from pf_monocular_pose_estimator_tpu_torch.geometry import exp_se3
+from pf_monocular_pose_estimator_tpu_torch.ops import blob
 from pf_monocular_pose_estimator_tpu_torch.ops import detect_kernel as dk
 from pf_monocular_pose_estimator_tpu_torch.parallel import gather_kernel as hk
 from pf_monocular_pose_estimator_tpu_torch.parallel import LocalMesh, shard_lanes, unshard_lanes
@@ -245,6 +247,73 @@ def test_detect_stats_wide_topk_few_roots_exact(dev, shape, topk):
     assert 0 < roots < topk
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[2], want[2]), (got[2].tolist(), want[2].tolist())
+
+
+def _same_bits(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), (i, g.tolist(), w.tolist())
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 64, 128])
+@pytest.mark.parametrize("option", list(epilogue_cases.OPTIONS))
+@pytest.mark.parametrize("case", epilogue_cases.CROPS)
+def test_detect_epilogue_exact(dev, case, option, k):
+    """The crop path's epilogue kernel against its plain twin run op by op on
+    the same card tensors, to the bit: kernel A's outputs on 192x256 crops
+    of merged, elongated, touching, no and only foreground blobs, every
+    combination of split_merged, split_dip_ratio and active_markers, K from
+    1 to 128 (A's wide path above 64), a distorting camera, a crop offset."""
+    params = epilogue_cases.params(option, k)
+    h, w = 192, 256
+    img = torch.from_numpy(epilogue_cases.crop(case, h, w, params.active_markers, seed=k)).to(dev)
+    prm = epilogue_cases.epilogue_params([3.0, 2.0, w - 6.0, h - 4.0], params.threshold, 0.7,
+                                         0.7, (311.0, 157.0), dev)
+    lab, maps, top = dk.detect_stats(img, prm[:12], 5, params.active_markers, 12, k)
+    cam = epilogue_cases.camera(dev)
+    got = dk.detect_epilogue(lab, maps, top, img, prm, 5, params, cam)
+    want = dk.detect_epilogue_plain(lab, maps, top, img, prm, 5, params, cam)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+def test_find_leds_on_the_card_runs_a_and_the_epilogue_alone(dev, monkeypatch):
+    """The tracker's crop-path call launches kernel A and the epilogue and
+    nothing of the op-by-op tail: the tail's functions raise if called, the
+    wrappers' counters move by one, and the profiler sees one epilogue
+    kernel among at most a dozen device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the op-by-op tail ran on the card")
+
+    for name in ("detect_epilogue_plain", "shape_filter", "split_and_compact", "finish_bank",
+                 "undistort_pixels"):
+        monkeypatch.setattr(dk, name, refuse)
+    params = epilogue_cases.params("split-dip-active", 16)
+    frame = np.zeros((480, 752), np.float32)
+    frame[100:292, 200:456] = epilogue_cases.crop("merged", 192, 256, True)
+    image = torch.from_numpy(np.round(frame).astype(np.uint8)).to(dev)
+    roi = torch.tensor([204.0, 104.0, 248.0, 184.0], device=dev)
+    cam = epilogue_cases.camera(dev)
+    on_dev = {name: torch.tensor(v, device=dev) for name, v in dict(
+        min_area=8.0, max_area=72.0, threshold=240.0, wh_distortion=0.7,
+        circ_distortion=0.7).items()}
+    blob.find_leds(image, roi, params, cam, **on_dev)  # builds the library, warms up
+    torch.cuda.synchronize()
+    before = (dk.detect_stats.launches, dk.detect_epilogue.calls, dk.detect_epilogue.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det = blob.find_leds(image, roi, params, cam, **on_dev)
+        torch.cuda.synchronize()
+    after = (dk.detect_stats.launches, dk.detect_epilogue.calls, dk.detect_epilogue.launches)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum("detect_epilogue_kernel" in n for n in ops) == 1, ops
+    assert len(ops) <= 12, ops
+    assert int(det.mask.sum()) == 7
 
 
 def _pf_inputs(dev, n, rng, cam_move_inv=None):

@@ -59,15 +59,15 @@ SPAN_ORDER = [
 SYNCS = [4, 5, 5]
 # host -> device uploads a frame.  A tracked frame on the crop: t, the
 # frame's fail flag and update flag (3); the prediction's two homogeneous
-# rows (2); the ROI's full-frame box (1); the detection's blur taps, crop
-# ROI, crop offset and id sentinel (4); each PF pass's inflation and marker
+# rows (2); the ROI's full-frame box (1); the detection's crop ROI, blur
+# taps and crop offset, one copy (1); each PF pass's inflation and marker
 # count (2); the teleport guard's flag, the motion prior's rows and falloff,
 # the lane count (4); the accepted flags (2); the refine's update flag (1:
 # the fused refine uploads no weight cap); the four counters (4); the
 # brute-force flag and the published pose's inverse row (2).  The
-# full-frame detection has no crop ROI or offset (2 fewer); the init frame
+# full-frame detection copies its taps the same way (1); the init frame
 # runs its own branch.
-UPLOADS = [53, 23, 25]
+UPLOADS = [50, 22, 22]
 IPE = dict(use_particle_filter=False, n_particles=64, min_blob_area=8.0)
 IPE_FRAMES = 6
 # the frame whose predicted pose is moved 5 cm along x: its ROI holds too few
